@@ -1,0 +1,211 @@
+// Forward bicubic feature warp for Hopper (sm_90a).
+//
+// Computes torch F.grid_sample(x, grid, mode='bicubic', padding_mode='zeros',
+// align_corners=False) on channels_last (NHWC) features:
+//
+//   out[b,r,l,c] = sum_j K(fy - j) sum_s K(fx - s) X[b,j,s,c],   A = -0.75
+//
+// It replaces the TPU kernel _fwd_kernel (lcgan_tpu/ops/warp_pallas.py), which
+// evaluates the same sum as banded dense matmuls because gathers are slow on a
+// TPU. On Hopper the direct 16-tap gather is the natural form, and it is exact
+// for any grid: no displacement bound, no band.
+//
+// What bounds it: device-memory bytes. The work is 32 flops per output value
+// against one read of x, one read of the fp32 grid and one write of out, far
+// below the card's flop-per-byte balance.
+//
+// Design:
+//   * one thread block per (batch, output row, tile of TW output columns);
+//   * the TW pixels' tap origins and 4+4 cubic weights are computed once, in
+//     fp32, into shared memory;
+//   * threads stride over (pixel, channel vector) pairs: on NHWC data one
+//     pixel's channels are contiguous, so neighbouring threads load
+//     neighbouring 16-byte vectors of the same tap (8 bf16 or 4 fp32) and each
+//     tap's loads are coalesced. Taps shared by neighbouring pixels and rows
+//     come from L1/L2, so x is read from device memory about once;
+//   * TW is chosen by the host so that a block has about one vector per
+//     thread (TW = 256 / (C / VEC), at most the row width);
+//   * fp32 accumulation, taps outside the image skipped, output in the input
+//     dtype; no atomics, so results are deterministic.
+//
+// C interface (ctypes): lcgan_warp_fwd returns cudaGetLastError() after the
+// launch, 0 on success.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxTile = 256;
+constexpr float kA = -0.75f;
+
+__device__ __forceinline__ float cubic_near(float x) {  // |x| <= 1
+  return ((kA + 2.f) * x - (kA + 3.f)) * x * x + 1.f;
+}
+
+__device__ __forceinline__ float cubic_far(float x) {  // 1 < |x| < 2
+  return ((kA * x - 5.f * kA) * x + 8.f * kA) * x - 4.f * kA;
+}
+
+// align_corners=False unnormalization, rounded step by step as the plain
+// PyTorch version does (no fma contraction), clamped to [-3, size + 2] where
+// every tap is off the image either way.
+__device__ __forceinline__ float unnormalize(float g, int size) {
+  float f = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.f), (float)size), 1.f), 0.5f);
+  return fminf(fmaxf(f, -3.f), (float)size + 2.f);
+}
+
+template <typename T, int VEC>
+struct Vec;
+
+template <>
+struct Vec<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
+    uint4 q = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = q;
+  }
+};
+
+template <>
+struct Vec<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = *p; }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) { *p = v[0]; }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[1]) {
+    v[0] = __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[1]) {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+};
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+warp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ grid, T* __restrict__ out,
+                int C, int H, int W, int Hg, int Wg, int tile, int ntiles) {
+  __shared__ float s_wx[kMaxTile][4];
+  __shared__ float s_wy[kMaxTile][4];
+  __shared__ int s_ix[kMaxTile];
+  __shared__ int s_iy[kMaxTile];
+
+  const long long bid = blockIdx.x;
+  const int t = (int)(bid % ntiles);
+  const long long br = bid / ntiles;  // b * Hg + r
+  const int b = (int)(br / Hg);
+  const int col0 = t * tile;
+  const int npix = min(tile, Wg - col0);
+  const long long pix0 = br * Wg + col0;  // flat index of the tile's first output pixel
+
+  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
+    const float* g = grid + 2 * (pix0 + p);
+    const float fx = unnormalize(g[0], W);
+    const float fy = unnormalize(g[1], H);
+    const float x0 = floorf(fx), y0 = floorf(fy);
+    const float tx = fx - x0, ty = fy - y0;
+    s_wx[p][0] = cubic_far(tx + 1.f);
+    s_wx[p][1] = cubic_near(tx);
+    s_wx[p][2] = cubic_near(1.f - tx);
+    s_wx[p][3] = cubic_far(2.f - tx);
+    s_wy[p][0] = cubic_far(ty + 1.f);
+    s_wy[p][1] = cubic_near(ty);
+    s_wy[p][2] = cubic_near(1.f - ty);
+    s_wy[p][3] = cubic_far(2.f - ty);
+    s_ix[p] = (int)x0 - 1;
+    s_iy[p] = (int)y0 - 1;
+  }
+  __syncthreads();
+
+  const int nvec = C / VEC;
+  const T* xb = x + (long long)b * H * W * C;
+  for (int item = threadIdx.x; item < npix * nvec; item += blockDim.x) {
+    const int p = item / nvec;
+    const int c = (item - p * nvec) * VEC;
+    const int ix = s_ix[p], iy = s_iy[p];
+    float acc[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int yy = iy + j;
+      if (yy < 0 || yy >= H) continue;
+      const T* row = xb + (long long)yy * W * C + c;
+      const float wy = s_wy[p][j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int xx = ix + i;
+        if (xx < 0 || xx >= W) continue;
+        const float wgt = wy * s_wx[p][i];
+        float v[VEC];
+        Vec<T, VEC>::load(row + (long long)xx * C, v);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] += v[k] * wgt;
+      }
+    }
+    Vec<T, VEC>::store(out + (pix0 + p) * C + c, acc);
+  }
+}
+
+template <typename T, int VEC>
+int launch(const void* x, const void* grid, void* out, int B, int C, int H, int W, int Hg,
+           int Wg, cudaStream_t stream) {
+  const int nvec = C / VEC;
+  int tile = kThreads / nvec;
+  tile = tile < 1 ? 1 : tile;
+  tile = tile > Wg ? Wg : tile;
+  const int ntiles = (Wg + tile - 1) / tile;
+  const long long blocks = (long long)B * Hg * ntiles;
+  if (blocks < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  warp_fwd_kernel<T, VEC><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(grid), static_cast<T*>(out), C, H, W,
+      Hg, Wg, tile, ntiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. x: (B, H, W, C) NHWC contiguous; grid:
+// (B, Hg, Wg, 2) fp32 contiguous; out: (B, Hg, Wg, C) NHWC contiguous.
+// vec: 1 to force scalar loads (C not a multiple of the vector width, or
+// pointers not 16-byte aligned), else 16-byte vectors.
+extern "C" int lcgan_warp_fwd(const void* x, const void* grid, void* out, int dtype, int vec,
+                              int B, int C, int H, int W, int Hg, int Wg, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return vec ? launch<float, 4>(x, grid, out, B, C, H, W, Hg, Wg, s)
+               : launch<float, 1>(x, grid, out, B, C, H, W, Hg, Wg, s);
+  }
+  if (dtype == 1) {
+    return vec ? launch<__nv_bfloat16, 8>(x, grid, out, B, C, H, W, Hg, Wg, s)
+               : launch<__nv_bfloat16, 1>(x, grid, out, B, C, H, W, Hg, Wg, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,91 @@
+"""Equalized learning-rate layers (StyleGAN convention), PyTorch port of
+``lcgan_tpu.ops.equalized``.
+
+  * runtime weight scale ``c = lr_mul / sqrt(fan_in)`` with params initialized
+    ``randn / lr_mul`` (custom_layers.py:7-14)
+  * bias param initialized to a constant and multiplied by ``lr_mul`` in the
+    forward pass (custom_layers.py:17-25, :28-44)
+
+Layouts are PyTorch's: linear weights (out, in), conv weights OIHW. The
+weight bridge (``lcgan_torch.convert``) transposes the Flax (in, out) and
+HWIO leaves.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def equalized_scale(fan_in: int, lr_mul: float = 1.0) -> float:
+    """He-style runtime scale: 1/sqrt(fan_in) * lr_mul (custom_layers.py:10)."""
+    return lr_mul / math.sqrt(fan_in)
+
+
+def equalized_param(shape, lr_mul: float, generator: Optional[torch.Generator]) -> nn.Parameter:
+    """``randn / lr_mul``, drawn from ``generator``."""
+    return nn.Parameter(torch.randn(shape, generator=generator) / lr_mul)
+
+
+class EqualizedLinear(nn.Module):
+    """Linear layer with equalized LR (custom_layers.py:17-25)."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        bias_init: float = 0.0,
+        lr_mul: float = 1.0,
+        use_bias: bool = True,
+        dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.lr_mul = lr_mul
+        self.dtype = dtype
+        self.scale = equalized_scale(in_features, lr_mul)
+        self.weight = equalized_param((features, in_features), lr_mul, generator)
+        self.bias = nn.Parameter(torch.full((features,), float(bias_init))) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x.to(self.dtype), (self.weight * self.scale).to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias * self.lr_mul
+        return y.to(self.dtype)
+
+
+class EqualizedConv2d(nn.Module):
+    """Stride-1 same-padding conv with equalized LR (custom_layers.py:28-44).
+
+    The generator uses it only as the 1×1 ``skip_layer`` without bias; the
+    packed k=3 route of the JAX package belongs to the discriminator.
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        kernel_size: int,
+        no_bias: bool = False,
+        lr_mul: float = 1.0,
+        dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        k = kernel_size
+        self.lr_mul = lr_mul
+        self.dtype = dtype
+        self.scale = equalized_scale(in_features * k * k, lr_mul)
+        self.weight = equalized_param((features, in_features, k, k), lr_mul, generator)
+        self.bias = None if no_bias else nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        y = F.conv2d(x.to(self.dtype), (self.weight * self.scale).to(self.dtype), padding=k // 2)
+        if self.bias is not None:
+            y = y + (self.bias * self.lr_mul)[None, :, None, None]
+        return y.to(self.dtype)
