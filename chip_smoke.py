@@ -2,27 +2,43 @@
 
     python3 chip_smoke.py
 
-1. Builds every CUDA kernel of the generation path from lcgan_torch/ops/csrc
-   with nvcc for sm_90a.
+1. Builds every CUDA kernel of the generation and training paths from
+   lcgan_torch/ops/csrc with nvcc for sm_90a, one nvcc per source, in
+   parallel: warp_fwd, warp_dgrid, warp_dx.
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, in fp32 (max abs error <= 1e-5) and bf16 (at most one
-   bf16 ulp of the output scale: both round the same fp32 sum once), for
-   flows at the tanh bound (0.1) and at the trained magnitude (0.03). The
-   error against torch F.grid_sample is printed beside it.
+   main paths' shapes, in fp32 (max abs error <= 1e-5, scaled by the
+   gradient's magnitude where it exceeds 1: the gradients sum up to C·16
+   products in another order) and bf16 (at most one bf16 ulp of the output
+   scale: both round the same fp32 sum once), for flows at the tanh bound
+   (0.1) and at the trained magnitude (0.03). The error against torch's own
+   op (F.grid_sample, aten.grid_sampler_2d_backward) is printed beside it.
+   The two gradient kernels, called twice on the same inputs, must give
+   bitwise-equal outputs.
 3. Times each kernel, its plain version and the one PyTorch call that computes
-   the same function (F.grid_sample, the yardstick; the port never calls it)
-   with CUDA events at the six warp shapes of one generated batch (B=8, bf16;
-   F.grid_sample on an fp32 copy, since it takes no bf16 features with an fp32 grid),
-   beside the bound: the larger of bytes over the card's memory rate and
-   flops over its fp32 rate.
-4. Drives the main path: `python -m lcgan_torch.cli --phase
+   the same function (F.grid_sample and aten.grid_sampler_2d_backward, the
+   yardsticks; the port never calls them) with CUDA events at the six warp
+   shapes of one batch of 8 (the forward in bf16, as generated, with
+   F.grid_sample on an fp32 copy since it takes no bf16 features with an fp32
+   grid; the gradients on fp32 features), beside the bound: the larger of
+   bytes over the card's memory rate and flops over its fp32 rate.
+4. Drives the generation path: `python -m lcgan_torch.cli --phase
    fake_image_generation` on a seeded flagship 256² generator (base_nf 128,
    max_nf 512, latents 64/512, bf16, batch 8), three batches. The kernel
-   launch counts are set to 0 just before and read just after; each warp
-   kernel must have run 6 times per batch. The JPEGs must exist, the
-   outputs be finite, and the same generator in fp32 must agree with the
-   port's CPU path (the plain warp, held to the JAX package by the CPU tests).
-5. Prints the kernels as one JSON line, the card's name and power limit, and
+   launch counts are set to 0 just before and read just after; warp_fwd
+   must have run 6 times per batch. The JPEGs must exist, the outputs be
+   finite, and the same generator in fp32 must agree with the port's CPU
+   path (the plain warp, held to the JAX package by the CPU tests).
+5. Drives the training path: `Trainer.train_iteration` of the flagship 256²
+   recipe (bf16, batch 8, seed 0, freezeD_start 2, freezeD_layer 5) for
+   epochs 0-3 (even, odd + R1, even frozen, odd frozen) on a seeded
+   synthetic batch. Counts set to 0 just before and read just after:
+   warp_fwd 24+12+24+12 = 72, warp_dgrid and warp_dx 18+6+18+6 = 48 each.
+   Losses finite, the frozen D leaves untouched by epochs 2-3, every other
+   leaf moved. Then times each variant and prints images/s over the
+   reference's 8-iteration mix (4 even, 1 odd + R1, 3 odd), and runs the
+   same four epochs at the dryrun width in fp32 on the card and on the
+   port's CPU path, which must agree.
+6. Prints the kernels as one JSON line, the card's name and power limit, and
    last the ok line. Exits nonzero, printing no result, on any failure and
    when no GPU is present.
 """
@@ -120,7 +136,7 @@ def build_kernels() -> None:
     from lcgan_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build(["warp_fwd"])
+    reports = _build.build(["warp_fwd", "warp_dgrid", "warp_dx"])
     print(f"build: {sorted(reports) or 'already built'} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, report in reports.items():
         for line in report.splitlines():
@@ -207,7 +223,134 @@ def time_warp_kernel(bw: float, flops: float) -> dict:
     return total
 
 
-def profile_forward(fn, iters: int = 5, top: int = 12) -> None:
+def cotangent_like(x, seed=1):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(x.shape, generator=g).to(x.device, x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def library_backward(x, grid, g, mask):
+    """aten's bicubic grid_sample backward (fp32 features, like F.grid_sample)."""
+    import torch
+
+    return torch.ops.aten.grid_sampler_2d_backward(g.float(), x.float(), grid, 2, 0, False, mask)
+
+
+def fp32_tol(ref) -> float:
+    return FP32_TOL * max(1.0, ref.abs().max().item())
+
+
+def check_backward_kernels() -> dict:
+    """warp_dgrid and warp_dx vs the plain backward at the main path's shapes,
+    and their determinism; returns each kernel's largest fp32 error."""
+    import torch
+
+    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain_backward
+    from lcgan_torch.ops.warp import warp_dgrid, warp_dx
+
+    worst = dict(warp_dgrid=0.0, warp_dx=0.0)
+    for b, c, h in CHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in FLOWS:
+                x, grid = warp_inputs(b, c, h, s, dtype)
+                g = cotangent_like(x)
+                got = dict(warp_dgrid=warp_dgrid(x, grid, g), warp_dx=warp_dx(grid, g))
+                torch.cuda.synchronize()
+                ref_dx, ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
+                lib_dx, lib_dgrid = library_backward(x, grid, g, [True, True])
+                ref = dict(warp_dgrid=ref_dgrid, warp_dx=ref_dx)
+                lib = dict(warp_dgrid=lib_dgrid, warp_dx=lib_dx)
+                for name in ("warp_dgrid", "warp_dx"):
+                    out, want = got[name].float(), ref[name].float()
+                    err = (out - want).abs().max().item()
+                    lib_err = (out - lib[name].float()).abs().max().item()
+                    tag = f"{name} {b}x{c}x{h}x{h} {str(dtype)[6:]} s={s}"
+                    if dtype == torch.float32 or name == "warp_dgrid":  # dgrid is fp32 from either
+                        tol = fp32_tol(want)
+                        if dtype == torch.float32:
+                            worst[name] = max(worst[name], err)
+                        check(err <= tol, f"{tag}: max_abs_err {err:.3g} (tol {tol:.3g} = 1e-5 x max(1, scale)); "
+                                          f"vs aten backward {lib_err:.3g}")
+                    else:
+                        ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+                        check(err <= ulp, f"{tag}: max_abs_err {err:.3g} (tol 1 bf16 ulp = {ulp:.3g}); "
+                                          f"vs aten backward {lib_err:.3g}")
+                del x, grid, g, got, ref, lib, ref_dx, ref_dgrid, lib_dx, lib_dgrid
+    for b, c, h in (CHECK_SHAPES[1], CHECK_SHAPES[-1]):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, grid = warp_inputs(b, c, h, 0.1, dtype, seed=2)
+            g = cotangent_like(x, seed=3)
+            same_dgrid = torch.equal(warp_dgrid(x, grid, g), warp_dgrid(x, grid, g))
+            same_dx = torch.equal(warp_dx(grid, g), warp_dx(grid, g))
+            check(same_dgrid and same_dx, f"determinism {b}x{c}x{h}x{h} {str(dtype)[6:]}: "
+                                          f"warp_dgrid bitwise equal {same_dgrid}, warp_dx bitwise equal {same_dx}")
+            del x, grid, g
+    return worst
+
+
+def time_backward_kernels(bw: float, flops: float) -> dict:
+    """K2 and K3, the plain backward (which computes both) and aten's backward
+    (one output each), summed over the six warps of one batch of 8 on fp32
+    features, at the tanh-bound flow (0.1)."""
+    import torch
+
+    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain_backward
+    from lcgan_torch.ops.warp import warp_dgrid, warp_dx
+
+    names = ("warp_dgrid", "warp_dx")
+    total = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for n in names}
+    bound_by = {n: set() for n in names}
+    for b, c, h in MAIN_PATH_WARPS:
+        x, grid = warp_inputs(b, c, h, 0.1, torch.float32)
+        g = cotangent_like(x)
+        xb, gb = x.bfloat16().contiguous(memory_format=torch.channels_last), g.bfloat16().contiguous(memory_format=torch.channels_last)
+        calls = dict(
+            warp_dgrid=(lambda: warp_dgrid(x, grid, g), lambda: library_backward(x, grid, g, [False, True]),
+                        lambda: warp_dgrid(xb, grid, gb)),
+            warp_dx=(lambda: warp_dx(grid, g), lambda: library_backward(x, grid, g, [True, False]),
+                     lambda: warp_dx(grid, gb)),
+        )
+        p1 = cuda_ms(lambda: grid_sample_bicubic_plain_backward(x, grid, g), 3)
+        n_out, es = b * h * h, 4
+        grid_bytes = n_out * 2 * 4
+        work = dict(  # (bytes: each input read once, each output written once; flops)
+            warp_dgrid=(2 * n_out * c * es + 2 * grid_bytes, 64 * c * n_out),  # x, g, grid; dgrid
+            warp_dx=(2 * n_out * c * es + grid_bytes, 32 * c * n_out),  # g, grid; dx
+        )
+        for name in names:
+            kernel, library, bf16_kernel = calls[name]
+            # turns K, L, L, K; the lower of each pair
+            k1 = cuda_ms(kernel)
+            l1 = cuda_ms(library)
+            l2 = cuda_ms(library)
+            k2 = cuda_ms(kernel)
+            kb = cuda_ms(bf16_kernel)
+            nbytes, nflops = work[name]
+            bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
+            bound_by[name].add("bytes" if bytes_ms >= flops_ms else "operations")
+            row = dict(ms=min(k1, k2), plain_ms=p1, library_ms=min(l1, l2), bound_ms=max(bytes_ms, flops_ms))
+            for k in row:
+                total[name][k] += row[k]
+            print(
+                f"time {name} {b}x{c}x{h}x{h} fp32: kernel {row['ms']:.4f} ms (bf16 {kb:.4f} ms), "
+                f"plain backward {row['plain_ms']:.4f} ms, aten backward {row['library_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB), kernel at {row['bound_ms'] / row['ms']:.1%} of bound",
+                flush=True,
+            )
+        del x, grid, g, xb, gb, calls
+    for name in names:
+        t = total[name]
+        t["bound_by"] = "bytes" if bound_by[name] == {"bytes"} else "operations"
+        print(
+            f"time {name} per batch of 8 (6 warps, fp32): kernel {t['ms']:.4f} ms, plain backward {t['plain_ms']:.4f} ms, "
+            f"aten backward {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms",
+            flush=True,
+        )
+    return total
+
+
+def profile_forward(fn, iters: int = 5, top: int = 12, what: str = "forward") -> None:
     """Device time of ``iters`` calls by kernel (torch.profiler), and the
     device's idle share of the window's wall time."""
     import torch
@@ -228,13 +371,16 @@ def profile_forward(fn, iters: int = 5, top: int = 12) -> None:
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0  # kernels, not the ops launching them
     ]
     busy = sum(ms for _, ms, _ in rows)
-    print(f"profile: {busy:.3f} ms device time per forward, {wall_ms / iters:.3f} ms wall, "
+    print(f"profile: {busy:.3f} ms device time per {what}, {wall_ms / iters:.3f} ms wall, "
           f"device idle {1 - busy * iters / wall_ms:.1%} (profiler on)")
-    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
-        print(f"  {ms:8.3f} ms {ms / busy:6.1%} x{count:<3d} {key[:110]}")
+    ranked = sorted(rows, key=lambda r: -r[1])
+    # the top kernels, and the port's own warp kernels wherever they rank
+    for i, (key, ms, count) in enumerate(ranked):
+        if i < top or "warp_" in key:
+            print(f"  {ms:8.3f} ms {ms / busy:6.1%} x{count:<3d} {key[:110]}")
 
 
-def run_main_path() -> int:
+def run_generation_path() -> int:
     """The generation phase through the CLI; returns the warp kernel's launches."""
     import numpy as np
     import torch
@@ -258,7 +404,7 @@ def run_main_path() -> int:
         cfg.dump(os.path.join(run, "args.txt"))
         g = build_generator(cfg, torch.Generator().manual_seed(0))
         save_generator(checkpoint_path(cfg), g, g)
-        print(f"main path: flagship 256² generator, {sum(p.numel() for p in g.parameters()) / 1e6:.2f} M params", flush=True)
+        print(f"generation path: flagship 256² generator, {sum(p.numel() for p in g.parameters()) / 1e6:.2f} M params", flush=True)
 
         warp.warp_fwd.launches = 0
         t0 = time.perf_counter()
@@ -268,10 +414,10 @@ def run_main_path() -> int:
         launches = warp.warp_fwd.launches
 
         n_img = num_fakes * cfg.batch_size
-        print(f"main path: {n_img} images in {seconds:.3f} s = {n_img / seconds:.2f} images/s "
+        print(f"generation path: {n_img} images in {seconds:.3f} s = {n_img / seconds:.2f} images/s "
               "(checkpoint load, first-call autotuning and JPEG writes included)", flush=True)
         expect = cfg.num_blocks * num_fakes  # one warp per synthesis block
-        check(launches == expect, f"warp_fwd launches on the main path: {launches} (expect {expect})")
+        check(launches == expect, f"warp_fwd launches on the generation path: {launches} (expect {expect})")
         jpgs = [os.path.join(run, "fakes", f"{i:04d}_images.jpg") for i in range(num_fakes)]
         shapes = [np.asarray(Image.open(p)).shape if os.path.exists(p) else None for p in jpgs]
         res = cfg.img_resolution
@@ -315,6 +461,133 @@ def run_main_path() -> int:
     return launches
 
 
+def snapshot(module) -> dict:
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def synthetic_batch(cfg, device, seed: int = 0) -> dict:
+    """image, geometry_change, appearance_change: (B, 3, H, W) in [-1, 1]."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (cfg.batch_size, cfg.img_ch, cfg.img_resolution, cfg.img_resolution)
+    return {k: torch.rand(shape, generator=g, device=device) * 2 - 1
+            for k in ("image", "geometry_change", "appearance_change")}
+
+
+def run_training_path() -> dict:
+    """Epochs 0-3 of the flagship 256² recipe through Trainer.train_iteration;
+    returns the kernels' launches."""
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.ops import warp
+    from lcgan_torch.train.freeze import freeze_mask
+    from lcgan_torch.train.steps import Trainer
+
+    cfg = Config(model_name="chip_smoke_train", img_resolution=256, base_nf=128, max_nf=512, geo_noise_dim=64,
+                 app_noise_dim=64, geo_latent_dim=64, app_latent_dim=512, compute_dtype="bfloat16", batch_size=8,
+                 seed=0, freezeD_start=2, freezeD_layer=5, device="cuda")
+    trainer = Trainer(cfg)
+    state = trainer.init_state()
+    batch = synthetic_batch(cfg, trainer.device)
+    n_g = sum(p.numel() for p in state.generator.parameters()) / 1e6
+    n_d = sum(p.numel() for p in state.discriminator.parameters()) / 1e6
+    print(f"training path: flagship 256² recipe, G {n_g:.2f} M + D {n_d:.2f} M params, bf16, batch 8", flush=True)
+
+    initial = {name: snapshot(m) for name, m in (("G", state.generator), ("D", state.discriminator), ("EMA", state.ema))}
+    warp.warp_fwd.launches = warp.warp_dgrid.launches = warp.warp_dx.launches = 0
+    losses, after_epoch1 = [], None
+    t0 = time.perf_counter()
+    for epoch in range(4):
+        state, g_loss, d_loss = trainer.train_iteration(state, batch, epoch)
+        losses.append((g_loss.item(), d_loss.item()))
+        if epoch == 1:
+            after_epoch1 = snapshot(state.discriminator)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(warp_fwd=warp.warp_fwd.launches, warp_dgrid=warp.warp_dgrid.launches, warp_dx=warp.warp_dx.launches)
+    print(f"training path: epochs 0-3 in {seconds:.3f} s (first calls included); losses (g, d) {losses}", flush=True)
+    expect = dict(warp_fwd=cfg.num_blocks * (4 + 2 + 4 + 2), warp_dgrid=cfg.num_blocks * (3 + 1 + 3 + 1))
+    expect["warp_dx"] = expect["warp_dgrid"]
+    for name, n in launches.items():
+        check(n == expect[name], f"{name} launches on the training path: {n} (expect {expect[name]})")
+    check(all(math.isfinite(v) for pair in losses for v in pair), "training losses finite")
+
+    mask = dict(zip((n for n, _ in state.discriminator.named_parameters()), freeze_mask(state.discriminator, cfg.freezeD_layer)))
+    final_d = snapshot(state.discriminator)
+    frozen_same = all(torch.equal(after_epoch1[k], final_d[k]) for k, f in mask.items() if f)
+    check(frozen_same, f"frozen D leaves ({sum(mask.values())}: from_rgb, block_0-{cfg.freezeD_layer - 1}) unchanged by epochs 2-3")
+    stale = [f"{name}.{k}" for name, m in (("G", state.generator), ("D", state.discriminator), ("EMA", state.ema))
+             for k, v in m.state_dict().items() if torch.equal(v, initial[name][k])]
+    check(not stale, f"every other leaf of G, D and EMA moved over epochs 0-3 (unmoved: {stale[:5]})")
+
+    # steady time of each unfrozen variant, host clock around a synchronized iteration
+    variants = dict(even=(True, False), odd_r1=(False, True), odd=(False, False))
+    ms = {}
+    for name, (even, with_r1) in variants.items():
+        times = []
+        for _ in range(3):
+            noise = trainer.draw_noise(state, cfg.batch_size)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer._iteration(state, batch, noise, even=even, with_r1=with_r1, frozen=False)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = min(times)
+        print(f"train step {name}: {ms[name]:.2f} ms (min of 3: {', '.join(f'{t:.2f}' for t in times)}), "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    mix_ms = 4 * ms["even"] + ms["odd_r1"] + 3 * ms["odd"]
+    print(f"train throughput over the 8-iteration mix (4 even, 1 odd+R1, 3 odd): {mix_ms:.1f} ms = "
+          f"{8 * cfg.batch_size / mix_ms * 1e3:.2f} images/s", flush=True)
+    noise = trainer.draw_noise(state, cfg.batch_size)
+    profile_forward(lambda: trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False),
+                    iters=2, top=16, what="even train step")
+    del state, trainer, batch, initial, after_epoch1, final_d
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_training_card_vs_cpu() -> None:
+    """Epochs 0, 1, 3 and 5 (frozen from 4) at the dryrun width in fp32,
+    the same weights, batch and noise on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.steps import Trainer
+
+    kw = dict(model_name="chip_smoke_dryrun", img_resolution=32, batch_size=4, geo_noise_dim=8, app_noise_dim=8,
+              geo_latent_dim=8, app_latent_dim=16, geo_projection_dim=8, app_projection_dim=8, base_nf=8, max_nf=16,
+              mbstd_group_size=2, compute_dtype="float32", adam_eps=1e-3, freezeD_start=4, freezeD_layer=1)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cfg = Config(**kw, device=device)
+        trainer = Trainer(cfg)
+        state = trainer.init_state(seed=0)
+        rng = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(rng.uniform(-1, 1, (4, 3, 32, 32)).astype(np.float32)).to(device)
+                 for k in ("image", "geometry_change", "appearance_change")}
+        losses = []
+        for epoch in (0, 1, 3, 5):
+            noise = tuple(torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32)).to(device) for _ in range(6))
+            state, g_loss, d_loss = trainer.step_variant(epoch)(state, batch, noise)
+            losses.append((g_loss.item(), d_loss.item()))
+        leaves = {f"{name}.{k}": v.cpu() for name, m in (("G", state.generator), ("D", state.discriminator), ("EMA", state.ema))
+                  for k, v in m.state_dict().items()}
+        leaves.update({f"{name}.v.{k}": v.cpu() for name, opt in (("g_opt", state.g_opt), ("d_opt", state.d_opt))
+                       for k, v in opt.v.items()})
+        runs[device] = (losses, leaves)
+    (card_losses, card), (cpu_losses, cpu) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for pa, pb in zip(card_losses, cpu_losses) for a, b in zip(pa, pb))
+    # relative to each leaf's scale: cuDNN picks its own conv algorithms and
+    # the gradient kernels sum in other orders than the CPU, over four chained steps
+    leaf_err, where = max(((card[k] - cpu[k]).abs().max().item() / max(1e-3, cpu[k].abs().max().item()), k) for k in cpu)
+    check(loss_err <= 1e-4 and leaf_err <= 1e-3,
+          f"fp32 dryrun-width epochs 0,1,3,5, card vs CPU: losses rel err {loss_err:.3g} (tol 1e-4), "
+          f"worst leaf rel err {leaf_err:.3g} at {where} (tol 1e-3 of the leaf's scale), {len(cpu)} leaves")
+
+
 def main() -> int:
     import torch
 
@@ -332,26 +605,30 @@ def main() -> int:
     bw, flops = card_rates(name)
 
     build_kernels()
-    worst = check_warp_kernel()
-    times = time_warp_kernel(bw, flops)
-    launches = run_main_path()
+    worst = dict(warp_fwd=check_warp_kernel(), **check_backward_kernels())
+    times = dict(warp_fwd=time_warp_kernel(bw, flops), **time_backward_kernels(bw, flops))
+    run_generation_path()
+    launches = run_training_path()
+    check_training_card_vs_cpu()
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
+    replaces = dict(warp_fwd="lcgan_tpu/ops/warp_pallas.py:442", warp_dgrid="lcgan_tpu/ops/warp_pallas.py:835",
+                    warp_dx="lcgan_tpu/ops/warp_pallas.py:901")
     kernels = [dict(
-        name="warp_fwd",
+        name=name,
         route="cuda",
-        source="lcgan_torch/ops/csrc/warp_fwd.cu",
-        replaces="lcgan_tpu/ops/warp_pallas.py:442",
-        launches=launches,
-        max_abs_err=worst,
-        ms=times["ms"],
-        plain_ms=times["plain_ms"],
-        bound_ms=times["bound_ms"],
-        bound_by=times["bound_by"],
-        library_ms=times["library_ms"],
-    )]
+        source=f"lcgan_torch/ops/csrc/{name}.cu",
+        replaces=replaces[name],
+        launches=launches[name],
+        max_abs_err=worst[name],
+        ms=times[name]["ms"],
+        plain_ms=times[name]["plain_ms"],
+        bound_ms=times[name]["bound_ms"],
+        bound_by=times[name]["bound_by"],
+        library_ms=times[name]["library_ms"],
+    ) for name in ("warp_fwd", "warp_dgrid", "warp_dx")]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

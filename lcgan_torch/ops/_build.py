@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``lcgan_torch/_build/<name>-<source hash>.so`` at first
-use, then loaded with ``ctypes``. Nothing is compiled when a module is
+use, then loaded with ``ctypes``. The hash covers the source and the shared
+headers (``csrc/*.cuh``) it may include. Nothing is compiled when a module is
 imported. ``build`` starts one ``nvcc`` per source, all at once.
 """
 
@@ -38,7 +39,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,0 +1,112 @@
+// Shared pieces of the bicubic warp kernels (warp_fwd.cu, warp_dgrid.cu,
+// warp_dx.cu): the cubic convolution weights and their derivatives, the
+// coordinate unnormalization, and 16-byte vector loads and stores of NHWC
+// channel runs.
+//
+// Every kernel computes a pixel's taps and weights exactly as the plain
+// PyTorch version does (lcgan_torch/ops/grid_sample.py): the coordinate is
+// rounded step by step, so tap indices agree at integer boundaries, and the
+// four weights come from the fractional offset t = f - floor(f).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace lcgan {
+
+constexpr float kA = -0.75f;  // torch's cubic convolution constant
+
+__device__ __forceinline__ float cubic_near(float x) {  // |x| <= 1
+  return ((kA + 2.f) * x - (kA + 3.f)) * x * x + 1.f;
+}
+
+__device__ __forceinline__ float cubic_far(float x) {  // 1 < |x| < 2
+  return ((kA * x - 5.f * kA) * x + 8.f * kA) * x - 4.f * kA;
+}
+
+__device__ __forceinline__ float dcubic_near(float x) {  // d/dx cubic_near
+  return (3.f * (kA + 2.f) * x - 2.f * (kA + 3.f)) * x;
+}
+
+__device__ __forceinline__ float dcubic_far(float x) {  // d/dx cubic_far
+  return (3.f * kA * x - 10.f * kA) * x + 8.f * kA;
+}
+
+// align_corners=False unnormalization, rounded step by step as the plain
+// PyTorch version does (no fma contraction), clamped to [-3, size + 2] where
+// every tap is off the image either way.
+__device__ __forceinline__ float unnormalize(float g, int size) {
+  float f = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.f), (float)size), 1.f), 0.5f);
+  return fminf(fmaxf(f, -3.f), (float)size + 2.f);
+}
+
+// The 4 tap weights of fractional offset t in [0, 1).
+__device__ __forceinline__ void cubic_weights(float t, float (&w)[4]) {
+  w[0] = cubic_far(t + 1.f);
+  w[1] = cubic_near(t);
+  w[2] = cubic_near(1.f - t);
+  w[3] = cubic_far(2.f - t);
+}
+
+// Their derivatives with respect to the sample coordinate.
+__device__ __forceinline__ void cubic_weight_derivatives(float t, float (&w)[4]) {
+  w[0] = dcubic_far(t + 1.f);
+  w[1] = dcubic_near(t);
+  w[2] = -dcubic_near(1.f - t);
+  w[3] = -dcubic_far(2.f - t);
+}
+
+template <typename T, int VEC>
+struct Vec;
+
+template <>
+struct Vec<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
+    uint4 q = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = q;
+  }
+};
+
+template <>
+struct Vec<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = *p; }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) { *p = v[0]; }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[1]) {
+    v[0] = __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[1]) {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+};
+
+}  // namespace lcgan

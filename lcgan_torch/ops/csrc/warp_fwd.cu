@@ -31,82 +31,14 @@
 // C interface (ctypes): lcgan_warp_fwd returns cudaGetLastError() after the
 // launch, 0 on success.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_common.cuh"
 
 namespace {
 
+using namespace lcgan;
+
 constexpr int kThreads = 256;
 constexpr int kMaxTile = 256;
-constexpr float kA = -0.75f;
-
-__device__ __forceinline__ float cubic_near(float x) {  // |x| <= 1
-  return ((kA + 2.f) * x - (kA + 3.f)) * x * x + 1.f;
-}
-
-__device__ __forceinline__ float cubic_far(float x) {  // 1 < |x| < 2
-  return ((kA * x - 5.f * kA) * x + 8.f * kA) * x - 4.f * kA;
-}
-
-// align_corners=False unnormalization, rounded step by step as the plain
-// PyTorch version does (no fma contraction), clamped to [-3, size + 2] where
-// every tap is off the image either way.
-__device__ __forceinline__ float unnormalize(float g, int size) {
-  float f = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.f), (float)size), 1.f), 0.5f);
-  return fminf(fmaxf(f, -3.f), (float)size + 2.f);
-}
-
-template <typename T, int VEC>
-struct Vec;
-
-template <>
-struct Vec<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
-    float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
-    uint4 q = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
-    uint4 q;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = q;
-  }
-};
-
-template <>
-struct Vec<float, 1> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = *p; }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) { *p = v[0]; }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[1]) {
-    v[0] = __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[1]) {
-    *p = __float2bfloat16_rn(v[0]);
-  }
-};
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -131,14 +63,8 @@ warp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ grid, T* __re
     const float fy = unnormalize(g[1], H);
     const float x0 = floorf(fx), y0 = floorf(fy);
     const float tx = fx - x0, ty = fy - y0;
-    s_wx[p][0] = cubic_far(tx + 1.f);
-    s_wx[p][1] = cubic_near(tx);
-    s_wx[p][2] = cubic_near(1.f - tx);
-    s_wx[p][3] = cubic_far(2.f - tx);
-    s_wy[p][0] = cubic_far(ty + 1.f);
-    s_wy[p][1] = cubic_near(ty);
-    s_wy[p][2] = cubic_near(1.f - ty);
-    s_wy[p][3] = cubic_far(2.f - ty);
+    cubic_weights(tx, s_wx[p]);
+    cubic_weights(ty, s_wy[p]);
     s_ix[p] = (int)x0 - 1;
     s_iy[p] = (int)y0 - 1;
   }

@@ -59,10 +59,12 @@ class EqualizedLinear(nn.Module):
 
 
 class EqualizedConv2d(nn.Module):
-    """Stride-1 same-padding conv with equalized LR (custom_layers.py:28-44).
+    """Same-padding conv with equalized LR (custom_layers.py:28-44).
 
-    The generator uses it only as the 1×1 ``skip_layer`` without bias; the
-    packed k=3 route of the JAX package belongs to the discriminator.
+    ``stride=2`` is the discriminator blocks' ``conv1`` (k=3, padding 1).
+    The JAX package's packed k=3 route is the same conv reordered for the
+    TPU's matrix unit (used only at 1024² with Co <= 32); the port has no
+    counterpart.
     """
 
     def __init__(
@@ -70,6 +72,7 @@ class EqualizedConv2d(nn.Module):
         in_features: int,
         features: int,
         kernel_size: int,
+        stride: int = 1,
         no_bias: bool = False,
         lr_mul: float = 1.0,
         dtype: torch.dtype = torch.float32,
@@ -77,6 +80,7 @@ class EqualizedConv2d(nn.Module):
     ):
         super().__init__()
         k = kernel_size
+        self.stride = stride
         self.lr_mul = lr_mul
         self.dtype = dtype
         self.scale = equalized_scale(in_features * k * k, lr_mul)
@@ -85,7 +89,7 @@ class EqualizedConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
-        y = F.conv2d(x.to(self.dtype), (self.weight * self.scale).to(self.dtype), padding=k // 2)
+        y = F.conv2d(x.to(self.dtype), (self.weight * self.scale).to(self.dtype), stride=self.stride, padding=k // 2)
         if self.bias is not None:
             y = y + (self.bias * self.lr_mul)[None, :, None, None]
         return y.to(self.dtype)

@@ -1,5 +1,5 @@
-"""Mapping network (custom_layers.py:259-287), PyTorch port of
-``lcgan_tpu.ops.mapping``.
+"""Mapping network (custom_layers.py:259-287) and projection heads
+(custom_layers.py:290-306), PyTorch port of ``lcgan_tpu.ops.mapping``.
 
 A learned linear factor L = orthogonalize(tanh(basis)) @ diag(|d| + eps)
 applied to the noise, followed by an MLP of equalized linears with NO
@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lcgan_torch.ops.equalized import EqualizedLinear
@@ -55,4 +56,33 @@ class MappingNetwork(nn.Module):
         x = z.float() @ l_factor.t()  # x = L z, batched as rows
         for idx in range(self.num_layers):
             x = getattr(self, f"mlp_{idx}")(x)
+        return x
+
+
+class ProjectionHead(nn.Module):
+    """Equalized-linear MLP with LeakyReLU(0.2) between hidden layers only
+    (custom_layers.py:290-306)."""
+
+    def __init__(
+        self,
+        channels_list: Sequence[int],
+        lr_mul: float = 0.01,
+        dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.num_layers = len(channels_list) - 1
+        for idx in range(self.num_layers):
+            self.add_module(
+                f"mlp_{idx}",
+                EqualizedLinear(
+                    channels_list[idx], channels_list[idx + 1], lr_mul=lr_mul, dtype=dtype, generator=generator
+                ),
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for idx in range(self.num_layers):
+            x = getattr(self, f"mlp_{idx}")(x)
+            if idx < self.num_layers - 1:
+                x = F.leaky_relu(x, 0.2)
         return x

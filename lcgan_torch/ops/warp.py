@@ -1,13 +1,22 @@
-"""The synthesis-block warp: bicubic ``grid_sample`` with zeros padding.
+"""The synthesis-block warp: bicubic ``grid_sample`` with zeros padding, and
+its gradient.
 
 ``grid_sample_bicubic(x, grid)`` takes the contract of ``F.grid_sample``:
 x (B, C, H, W), grid (B, Hg, Wg, 2) in (x, y) order, mode='bicubic',
-padding_mode='zeros', align_corners=False. A CPU tensor goes to the plain
-version (``ops.grid_sample.grid_sample_bicubic_plain``); a CUDA tensor
-launches the hand-written kernel ``csrc/warp_fwd.cu`` or raises.
+padding_mode='zeros', align_corners=False. It is the autograd Function
+``BicubicWarp`` (the port of the JAX package's ``custom_vjp``
+``_grid_sample_bicubic_pallas_vjp``):
 
-Forward only: the backward kernels come with the training slice of the
-port, so on CUDA an input that requires grad raises.
+  * on CPU tensors its forward and backward are the plain versions
+    (``ops.grid_sample``);
+  * on CUDA tensors the forward launches ``csrc/warp_fwd.cu`` and the
+    backward ``csrc/warp_dgrid.cu`` (the grid's gradient) and
+    ``csrc/warp_dx.cu`` (the features'), or raises. Nothing falls back to
+    the plain versions.
+
+The dx kernel measures its window from the grid on the device, so the
+gradient is exact for any grid, as the forward is; it needs Hg = H and
+Wg = W, the generator's only use.
 """
 
 from __future__ import annotations
@@ -15,19 +24,51 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from lcgan_torch.ops import _build
-from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain
+from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain, grid_sample_bicubic_plain_backward
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("warp_fwd")
-    fn = lib.lcgan_warp_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def _fn(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    fn = getattr(_build.load(name), symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _check_features(name: str, t: torch.Tensor, what: str) -> None:
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16 {what}, got {t.dtype}")
+    if t.dim() != 4 or not t.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{name} needs 4-D channels_last {what}, got {tuple(t.shape)} {t.stride()}")
+
+
+def _check_grid(name: str, grid: torch.Tensor, ref: torch.Tensor) -> None:
+    if ref.device.type != "cuda" or grid.device != ref.device:
+        raise ValueError(f"{name} needs its tensors on one CUDA device, got {ref.device}, {grid.device}")
+    if grid.dtype != torch.float32:
+        raise TypeError(f"{name} takes a float32 grid, got {grid.dtype}")
+    if grid.dim() != 4 or grid.shape[0] != ref.shape[0] or grid.shape[3] != 2 or not grid.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous (B, Hg, Wg, 2) grid, got {tuple(grid.shape)}")
+
+
+def _vec(*tensors: torch.Tensor) -> int:
+    """1 if every tensor's channel runs can be read as 16-byte vectors."""
+    t0 = tensors[0]
+    return int(t0.shape[1] % (16 // t0.element_size()) == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 def warp_fwd(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -38,46 +79,109 @@ def warp_fwd(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     fp32, contiguous, on the same device. Returns (B, C, Hg, Wg) channels_last
     in x's dtype.
     """
-    if x.device.type != "cuda" or grid.device != x.device:
-        raise ValueError(f"warp_fwd needs x and grid on one CUDA device, got {x.device}, {grid.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"warp_fwd takes float32 or bfloat16 features, got {x.dtype}")
-    if grid.dtype != torch.float32:
-        raise TypeError(f"warp_fwd takes a float32 grid, got {grid.dtype}")
-    if x.dim() != 4 or grid.dim() != 4 or grid.shape[0] != x.shape[0] or grid.shape[3] != 2:
-        raise ValueError(f"bad shapes: x {tuple(x.shape)}, grid {tuple(grid.shape)}")
-    if not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("warp_fwd needs channels_last features")
-    if not grid.is_contiguous():
-        raise ValueError("warp_fwd needs a contiguous grid")
+    _check_grid("warp_fwd", grid, x)
+    _check_features("warp_fwd", x, "features")
     b, c, h, w = x.shape
     hg, wg = grid.shape[1], grid.shape[2]
     out = torch.empty((b, c, hg, wg), dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    vec_elems = 16 // x.element_size()
-    vec = int(c % vec_elems == 0 and x.data_ptr() % 16 == 0)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = _fn("warp_fwd", "lcgan_warp_fwd", [_PTR] * 3 + [_INT] * 8 + [_PTR])
     with torch.cuda.device(x.device):
-        rc = _lib().lcgan_warp_fwd(
-            x.data_ptr(), grid.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], vec,
-            b, c, h, w, hg, wg, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"warp_fwd kernel launch failed: cudaError {rc}")
+        rc = fn(x.data_ptr(), grid.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], _vec(x),
+                b, c, h, w, hg, wg, _stream(x))
+    _raise_on(rc, "warp_fwd")
     warp_fwd.launches += 1
     return out
 
 
+def warp_dgrid(x: torch.Tensor, grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA grid-gradient kernel. Counts its launches in
+    ``warp_dgrid.launches``.
+
+    x: (B, C, H, W) and the cotangent g: (B, C, Hg, Wg), both channels_last in
+    one dtype (fp32 or bf16); grid: (B, Hg, Wg, 2) fp32, contiguous. Returns
+    dgrid (B, Hg, Wg, 2) fp32.
+    """
+    _check_grid("warp_dgrid", grid, x)
+    _check_features("warp_dgrid", x, "features")
+    _check_features("warp_dgrid", g, "cotangent")
+    b, c, h, w = x.shape
+    hg, wg = grid.shape[1], grid.shape[2]
+    if g.dtype != x.dtype or g.device != x.device or tuple(g.shape) != (b, c, hg, wg):
+        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} does not match x {tuple(x.shape)} {x.dtype} "
+                         f"and grid {tuple(grid.shape)}")
+    dgrid = torch.empty((b, hg, wg, 2), dtype=torch.float32, device=x.device)
+    if g.numel() == 0:
+        return dgrid.zero_()
+    fn = _fn("warp_dgrid", "lcgan_warp_dgrid", [_PTR] * 4 + [_INT] * 8 + [_PTR])
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), grid.data_ptr(), g.data_ptr(), dgrid.data_ptr(), _DTYPES[x.dtype], _vec(x, g),
+                b, c, h, w, hg, wg, _stream(x))
+    _raise_on(rc, "warp_dgrid")
+    warp_dgrid.launches += 1
+    return dgrid
+
+
+def warp_dx(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA feature-gradient kernels (the window pass and the
+    gather). Counts its launches in ``warp_dx.launches``.
+
+    grid: (B, H, W, 2) fp32, contiguous; g: the cotangent (B, C, H, W),
+    channels_last, fp32 or bf16, on the grid's map size. Returns dx
+    (B, C, H, W) channels_last in g's dtype: the features had the grid's
+    map size (the generator's only use; other sizes raise).
+    """
+    _check_grid("warp_dx", grid, g)
+    _check_features("warp_dx", g, "cotangent")
+    b, c, h, w = g.shape
+    if tuple(grid.shape[1:3]) != (h, w):
+        raise ValueError(f"warp_dx needs the features' map size on the grid: grid {tuple(grid.shape)}, g {tuple(g.shape)}")
+    dx = torch.empty_like(g, memory_format=torch.channels_last)
+    if g.numel() == 0:
+        return dx
+    lib = _build.load("warp_dx")
+    lib.lcgan_warp_dx_scratch.restype = ctypes.c_int
+    partial = torch.empty(lib.lcgan_warp_dx_scratch(), dtype=torch.float32, device=g.device)
+    fn = _fn("warp_dx", "lcgan_warp_dx", [_PTR] * 4 + [_INT] * 6 + [_PTR])
+    with torch.cuda.device(g.device):
+        rc = fn(grid.data_ptr(), g.data_ptr(), partial.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype], _vec(g, dx),
+                b, c, h, w, _stream(g))
+    _raise_on(rc, "warp_dx")
+    warp_dx.launches += 1
+    return dx
+
+
 warp_fwd.launches = 0
+warp_dgrid.launches = 0
+warp_dx.launches = 0
+
+
+class BicubicWarp(torch.autograd.Function):
+    """Bicubic warp with its hand-written gradient. Saves only (x, grid), as
+    the JAX package's ``_vjp_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, grid)
+        if x.device.type == "cpu" and grid.device.type == "cpu":
+            return grid_sample_bicubic_plain(x, grid)
+        return warp_fwd(x, grid)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g: torch.Tensor):
+        x, grid = ctx.saved_tensors
+        need_x, need_grid = ctx.needs_input_grad[:2]
+        if x.device.type == "cpu" and grid.device.type == "cpu":
+            dx, dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
+            return (dx if need_x else None), (dgrid.to(grid.dtype) if need_grid else None)
+        g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        dx = warp_dx(grid, g) if need_x else None
+        dgrid = warp_dgrid(x, grid, g) if need_grid else None
+        return dx, dgrid
 
 
 def grid_sample_bicubic(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Bicubic warp: plain PyTorch on the CPU, the CUDA kernel on the card."""
-    if x.device.type == "cpu" and grid.device.type == "cpu":
-        return grid_sample_bicubic_plain(x, grid)
-    if x.requires_grad or grid.requires_grad:
-        raise NotImplementedError(
-            "the CUDA warp is forward-only; its backward kernels land with the training slice"
-        )
-    return warp_fwd(x, grid)
+    """Bicubic warp: plain PyTorch on the CPU, the CUDA kernels on the card."""
+    return BicubicWarp.apply(x, grid)

@@ -1,0 +1,90 @@
+"""Train state: models, optimizer states, step and noise stream, PyTorch
+port of ``lcgan_tpu.train.state``.
+
+The JAX package keeps everything in one immutable pytree; here the state is
+a container of modules and tensors that the train iteration updates in
+place (parameters, buffers, Adam moments), which keeps one copy of each.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from lcgan_torch.config import Config
+from lcgan_torch.models.discriminator import Discriminator, build_discriminator
+from lcgan_torch.models.generator import Generator, build_generator
+
+
+class AdamNoMu:
+    """Adam with beta1 == 0, ``_adam_no_mu`` (lcgan_tpu/train/state.py:70-93)
+    ported as written: the first moment IS the gradient, so only ``v`` and
+    ``count`` are kept, and the update is ``-lr·g / (sqrt(v / (1 − b2^t)) + eps)``.
+
+    Unlike ``torch.optim.Adam``, every leaf steps every time: a frozen leaf
+    gets a zero gradient, its ``v`` decays, and its update is not applied
+    (``steps.py:277-281``).
+    """
+
+    def __init__(self, module: nn.Module, lr: float, b2: float, eps: float):
+        self.lr, self.b2, self.eps = lr, b2, eps
+        self.v = {name: torch.zeros_like(p) for name, p in module.named_parameters()}
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+             frozen: Optional[Sequence[bool]] = None) -> None:
+        """Update ``params`` (in ``named_parameters`` order) in place."""
+        self.count += 1
+        v = list(self.v.values())
+        torch._foreach_mul_(v, self.b2)
+        torch._foreach_addcmul_(v, grads, grads, value=1.0 - self.b2)
+        correction = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(self.count))
+        denom = torch._foreach_div(v, correction)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        updates = torch._foreach_mul(grads, -self.lr)
+        torch._foreach_div_(updates, denom)
+        live = [i for i in range(len(params)) if not (frozen and frozen[i])]
+        torch._foreach_add_([params[i] for i in live], [updates[i] for i in live])
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    generator: Generator  # g_params and the g_stats buffers
+    discriminator: Discriminator
+    ema: Generator  # ema_params and ema_stats
+    g_opt: AdamNoMu
+    d_opt: AdamNoMu
+    rng: torch.Generator  # the iterations' noise, on the run's device
+
+
+def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> Tuple[Generator, Discriminator]:
+    """G and D on the CPU, drawn from ``generator`` in that order."""
+    return build_generator(cfg, generator), build_discriminator(cfg, generator)
+
+
+def make_optimizers(cfg: Config, g: nn.Module, d: nn.Module) -> Tuple[AdamNoMu, AdamNoMu]:
+    # Adam (beta1=0.0, beta2=0.99, eps=1e-8), worker.py:98-110
+    if cfg.beta1 != 0.0:
+        raise NotImplementedError("the port's Adam keeps no first moment: beta1 must be 0 (the reference's value)")
+    return AdamNoMu(g, cfg.g_lr, cfg.beta2, cfg.adam_eps), AdamNoMu(d, cfg.d_lr, cfg.beta2, cfg.adam_eps)
+
+
+def create_train_state(cfg: Config, device: torch.device, seed: Optional[int] = None) -> TrainState:
+    """Seeded models on ``device`` (channels_last); EMA starts as an exact
+    copy (ema.py:12-17); the noise stream is seeded from the same seed."""
+    seed = cfg.seed if seed is None else seed
+    g, d = build_models(cfg, torch.Generator().manual_seed(seed))
+    g = g.to(device, memory_format=torch.channels_last).train()
+    d = d.to(device, memory_format=torch.channels_last).train()
+    ema = copy.deepcopy(g).eval()
+    g_opt, d_opt = make_optimizers(cfg, g, d)
+    rng = torch.Generator(device=device).manual_seed(seed)
+    return TrainState(step=0, generator=g, discriminator=d, ema=ema, g_opt=g_opt, d_opt=d_opt, rng=rng)

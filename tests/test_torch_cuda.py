@@ -1,4 +1,5 @@
-"""The CUDA warp kernel on the card, against the plain version.
+"""The CUDA warp kernels on the card (forward, grid gradient, feature
+gradient), against their plain versions.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so on a GPU host without JAX it runs with
@@ -11,7 +12,11 @@ import torch
 
 from lcgan_torch.models.generator import Generator
 from lcgan_torch.ops import warp
-from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain, identity_like_coordinates
+from lcgan_torch.ops.grid_sample import (
+    grid_sample_bicubic_plain,
+    grid_sample_bicubic_plain_backward,
+    identity_like_coordinates,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -69,12 +74,111 @@ def test_kernel_other_output_size_and_far_grid(dev):
 
 def test_wrapper_refuses(dev):
     x, grid = case(1, 8, 8, 8, 0.1, torch.float32, dev)
-    with pytest.raises(NotImplementedError):
-        warp.grid_sample_bicubic(x.requires_grad_(), grid)
     with pytest.raises(ValueError, match="channels_last"):
-        warp.warp_fwd(x.detach().contiguous(), grid)
+        warp.warp_fwd(x.contiguous(), grid)
     with pytest.raises(TypeError):
-        warp.warp_fwd(x.detach(), grid.double())
+        warp.warp_fwd(x, grid.double())
+    with pytest.raises(ValueError, match="cotangent"):
+        warp.warp_dgrid(x, grid, x[:, :4].contiguous(memory_format=torch.channels_last))
+    with pytest.raises(ValueError, match="map size"):
+        warp.warp_dx(grid[:, :4].contiguous(), x)
+
+
+def cotangent(x, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(x.shape, generator=g).to(x.device, x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def fp32_tol(ref: torch.Tensor) -> float:
+    """1e-5, scaled by the gradient's magnitude where it exceeds 1: the
+    kernels sum up to C·16 products in another order than the plain version."""
+    return 1e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("s", [0.1, 0.03])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_kernels_match_plain_fp32(shape, s, dev):
+    x, grid = case(*shape, s, torch.float32, dev)
+    g = cotangent(x)
+    before = (warp.warp_dgrid.launches, warp.warp_dx.launches)
+    dgrid = warp.warp_dgrid(x, grid, g)
+    dx = warp.warp_dx(grid, g)
+    torch.cuda.synchronize()
+    assert (warp.warp_dgrid.launches, warp.warp_dx.launches) == (before[0] + 1, before[1] + 1)
+    assert dx.is_contiguous(memory_format=torch.channels_last) and dx.dtype == torch.float32
+    ref_dx, ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
+    assert (dx - ref_dx).abs().max().item() <= fp32_tol(ref_dx)
+    assert (dgrid - ref_dgrid).abs().max().item() <= fp32_tol(ref_dgrid)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_kernels_match_plain_bf16(shape, dev):
+    x, grid = case(*shape, 0.1, torch.bfloat16, dev)
+    g = cotangent(x)
+    dx = warp.warp_dx(grid, g)
+    dgrid = warp.warp_dgrid(x, grid, g)
+    ref_dx, ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
+    assert dx.dtype == torch.bfloat16 and dgrid.dtype == torch.float32
+    # dx: both round one fp32 sum to bf16, at most one ulp of the output scale apart
+    ulp = 2.0 ** (torch.floor(torch.log2(ref_dx.float().abs().max())).item() - 7)
+    assert (dx.float() - ref_dx.float()).abs().max().item() <= ulp
+    # dgrid stays fp32 from bf16-exact inputs
+    assert (dgrid - ref_dgrid).abs().max().item() <= fp32_tol(ref_dgrid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_are_deterministic(dtype, dev):
+    x, grid = case(2, 128, 32, 32, 0.1, dtype, dev)
+    g = cotangent(x)
+    assert torch.equal(warp.warp_dgrid(x, grid, g), warp.warp_dgrid(x, grid, g))
+    assert torch.equal(warp.warp_dx(grid, g), warp.warp_dx(grid, g))
+
+
+def test_backward_far_grid_is_zero(dev):
+    x, grid = case(1, 8, 16, 16, 0.1, torch.float32, dev)
+    far = torch.full_like(grid, 1e30)
+    g = cotangent(x)
+    assert torch.count_nonzero(warp.warp_dgrid(x, far, g)) == 0
+    assert torch.count_nonzero(warp.warp_dx(far, g)) == 0
+
+
+@pytest.mark.parametrize("s", [0.1, 0.03])
+def test_autograd_function_on_card_matches_cpu(s, dev):
+    """A CUDA input that requires grad runs the kernels both ways, and the
+    grads agree with the Function's CPU path."""
+    x, grid = case(2, 16, 12, 20, s, torch.float32, dev)
+    g = cotangent(x)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        xd = x.detach().to(device).requires_grad_()
+        gd = grid.detach().to(device).requires_grad_()
+        launches = (warp.warp_fwd.launches, warp.warp_dgrid.launches, warp.warp_dx.launches)
+        warp.grid_sample_bicubic(xd, gd).backward(g.to(device).contiguous())  # not channels_last
+        ran = (warp.warp_fwd.launches, warp.warp_dgrid.launches, warp.warp_dx.launches)
+        assert ran == tuple(n + (device.type == "cuda") for n in launches)
+        grads.append((xd.grad.cpu(), gd.grad.cpu()))
+    (dx, dgrid), (ref_dx, ref_dgrid) = grads
+    assert (dx - ref_dx).abs().max().item() <= fp32_tol(ref_dx)
+    assert (dgrid - ref_dgrid).abs().max().item() <= fp32_tol(ref_dgrid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_box_filter_gradient_on_card_matches_cpu(dtype, dev):
+    """PyTorch's own CUDA avg_pool2d backward on channels_last features gave
+    wrong gradients; the port's box filter routes its gradient through the
+    forward pool, which agrees with the CPU."""
+    from lcgan_torch.ops.filters import box_filter_3x3
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 16, 12, 10), generator=g).to(dtype).contiguous(memory_format=torch.channels_last)
+    cot = torch.randn((2, 16, 12, 10), generator=g).to(dtype)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        xd = x.to(device).requires_grad_()
+        (dx,) = torch.autograd.grad(box_filter_3x3(xd), xd, cot.to(device))
+        grads.append(dx.float().cpu())
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -6  # bf16: one rounding of values below 4
+    torch.testing.assert_close(grads[0], grads[1], atol=tol, rtol=0)
 
 
 def test_generator_on_card_matches_cpu(dev):

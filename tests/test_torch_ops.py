@@ -6,6 +6,7 @@ the torch side gets them transposed as ``lcgan_torch.convert`` does.
 Tolerance 1e-5 abs/rel throughout, the QR of the mapping nets included.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,6 +79,20 @@ def test_filters(name, rng):
     x = f32(rng, 2, 8, 6, 3)
     ref = getattr(j_f, name)(jnp.asarray(x))
     np.testing.assert_allclose(nhwc(getattr(t_f, name)(nchw(x))), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("memory_format", [torch.contiguous_format, torch.channels_last])
+def test_box_filter_gradient_matches_jax(memory_format, rng):
+    """The box filter's hand-routed gradient (the filter itself) against
+    jax.vjp, and its first and second derivatives by finite differences."""
+    x, g = f32(rng, 2, 8, 6, 3), f32(rng, 2, 8, 6, 3)
+    _, vjp = jax.vjp(j_f.box_filter_3x3, jnp.asarray(x))
+    xt = nchw(x).contiguous(memory_format=memory_format).requires_grad_()
+    (dx,) = torch.autograd.grad(t_f.box_filter_3x3(xt), xt, nchw(g))
+    np.testing.assert_allclose(nhwc(dx), np.asarray(vjp(jnp.asarray(g))[0]), **TOL)
+    x64 = xt.detach().double().requires_grad_()
+    assert torch.autograd.gradcheck(t_f.box_filter_3x3, (x64,))
+    assert torch.autograd.gradgradcheck(t_f.box_filter_3x3, (x64,))
 
 
 @pytest.mark.parametrize("gain", [1.0, float(np.sqrt(2.0))])
