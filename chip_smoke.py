@@ -34,10 +34,12 @@
    synthetic batch. Counts set to 0 just before and read just after:
    warp_fwd 24+12+24+12 = 72, warp_dgrid and warp_dx 18+6+18+6 = 48 each.
    Losses finite, the frozen D leaves untouched by epochs 2-3, every other
-   leaf moved. Then times each variant and prints images/s over the
-   reference's 8-iteration mix (4 even, 1 odd + R1, 3 odd), and runs the
-   same four epochs at the dryrun width in fp32 on the card and on the
-   port's CPU path, which must agree.
+   leaf moved. Then times each variant alone (min of 3, a per-layer
+   figure), and the reference's 8-iteration mix (4 even, 1 odd + R1, 3 odd)
+   through train_iteration as MIX_WINDOWS synchronized windows, printing all
+   the images over all the time (images/s). Last it runs four epochs at the
+   dryrun width in fp32 on the card and on the port's CPU path, which must
+   agree.
 6. Prints the kernels as one JSON line, the card's name and power limit, and
    last the ok line. Exits nonzero, printing no result, on any failure and
    when no GPU is present.
@@ -68,6 +70,7 @@ MAIN_PATH_WARPS = [(8, 512, 8), (8, 512, 16), (8, 512, 32), (8, 512, 64), (8, 25
 CHECK_SHAPES = [(8, 512, 8), (8, 512, 64), (8, 256, 128), (8, 128, 256)]
 FLOWS = [0.1, 0.03]
 FP32_TOL = 1e-5
+MIX_WINDOWS = 5  # timed passes over the training schedule's 8-iteration mix
 
 failures: list[str] = []
 
@@ -522,9 +525,8 @@ def run_training_path() -> dict:
              for k, v in m.state_dict().items() if torch.equal(v, initial[name][k])]
     check(not stale, f"every other leaf of G, D and EMA moved over epochs 0-3 (unmoved: {stale[:5]})")
 
-    # steady time of each unfrozen variant, host clock around a synchronized iteration
+    # per layer: each unfrozen variant alone, host clock around a synchronized iteration
     variants = dict(even=(True, False), odd_r1=(False, True), odd=(False, False))
-    ms = {}
     for name, (even, with_r1) in variants.items():
         times = []
         for _ in range(3):
@@ -534,12 +536,25 @@ def run_training_path() -> dict:
             trainer._iteration(state, batch, noise, even=even, with_r1=with_r1, frozen=False)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        ms[name] = min(times)
-        print(f"train step {name}: {ms[name]:.2f} ms (min of 3: {', '.join(f'{t:.2f}' for t in times)}), "
+        print(f"train step {name}: {min(times):.2f} ms (min of 3: {', '.join(f'{t:.2f}' for t in times)}), "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-    mix_ms = 4 * ms["even"] + ms["odd_r1"] + 3 * ms["odd"]
-    print(f"train throughput over the 8-iteration mix (4 even, 1 odd+R1, 3 odd): {mix_ms:.1f} ms = "
-          f"{8 * cfg.batch_size / mix_ms * 1e3:.2f} images/s", flush=True)
+
+    # end to end: the reference's 8-iteration mix (schedule slots 0-7: 4 even,
+    # 1 odd + R1, 3 odd; unfrozen) through train_iteration as a loop calls it,
+    # each pass one synchronized window; all the images over all the time
+    loop = Trainer(dataclasses.replace(cfg, freezeD_start=10**9))
+    windows = []
+    for _ in range(MIX_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for epoch in range(8):
+            state, _, _ = loop.train_iteration(state, batch, epoch)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+    n_img = MIX_WINDOWS * 8 * cfg.batch_size
+    print(f"train throughput over the 8-iteration mix (4 even, 1 odd+R1, 3 odd), {MIX_WINDOWS} windows: "
+          f"{n_img} images in {sum(windows):.3f} s = {n_img / sum(windows):.2f} images/s "
+          f"(windows {', '.join(f'{w * 1e3:.1f}' for w in windows)} ms)", flush=True)
     noise = trainer.draw_noise(state, cfg.batch_size)
     profile_forward(lambda: trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False),
                     iters=2, top=16, what="even train step")
@@ -564,7 +579,7 @@ def check_training_card_vs_cpu() -> None:
     for device in ("cuda", "cpu"):
         cfg = Config(**kw, device=device)
         trainer = Trainer(cfg)
-        state = trainer.init_state(seed=0)
+        state = trainer.init_state()
         rng = np.random.default_rng(0)
         batch = {k: torch.from_numpy(rng.uniform(-1, 1, (4, 3, 32, 32)).astype(np.float32)).to(device)
                  for k in ("image", "geometry_change", "appearance_change")}

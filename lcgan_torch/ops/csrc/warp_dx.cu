@@ -54,7 +54,7 @@ using namespace lcgan;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kDispBlocks = 128;  // partial maxima of the displacement pass
+constexpr int kDispBlocks = 128;  // partial maxima of the displacement pass; _DX_SCRATCH in ops/warp.py
 
 // Per-block max over output pixels of max(|fx - q|, |fy - r|).
 __global__ void __launch_bounds__(kThreads)
@@ -221,11 +221,8 @@ int launch(const void* grid, const void* g, void* partial, void* dx, int B, int 
 
 }  // namespace
 
-// Scratch floats the wrapper allocates for the displacement pass.
-extern "C" int lcgan_warp_dx_scratch(void) { return kDispBlocks; }
-
 // dtype: 0 = float32, 1 = bfloat16. grid: (B, H, W, 2) fp32 contiguous; g:
-// (B, H, W, C) NHWC contiguous; partial: lcgan_warp_dx_scratch() fp32; dx:
+// (B, H, W, C) NHWC contiguous; partial: kDispBlocks fp32; dx:
 // (B, H, W, C) NHWC contiguous in g's dtype. vec: 1 to force scalar loads
 // (C not a multiple of the vector width, or pointers not 16-byte aligned),
 // else 16-byte vectors.

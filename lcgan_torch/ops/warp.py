@@ -33,10 +33,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
-def _fn(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    fn = getattr(_build.load(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+# each kernel's C entry point and its arguments (csrc/<name>.cu)
+_SIGNATURES = {
+    "warp_fwd": ("lcgan_warp_fwd", [_PTR] * 3 + [_INT] * 8 + [_PTR]),
+    "warp_dgrid": ("lcgan_warp_dgrid", [_PTR] * 4 + [_INT] * 8 + [_PTR]),
+    "warp_dx": ("lcgan_warp_dx", [_PTR] * 4 + [_INT] * 6 + [_PTR]),
+}
+_DX_SCRATCH = 128  # fp32 partial maxima of warp_dx's window pass: kDispBlocks in csrc/warp_dx.cu
+_fns: dict = {}
+
+
+def _fn(name: str) -> ctypes._CFuncPtr:
+    """The kernel's C entry point, built, loaded and typed at first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(_build.load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
     return fn
 
 
@@ -86,7 +101,7 @@ def warp_fwd(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, c, hg, wg), dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    fn = _fn("warp_fwd", "lcgan_warp_fwd", [_PTR] * 3 + [_INT] * 8 + [_PTR])
+    fn = _fn("warp_fwd")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), grid.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], _vec(x),
                 b, c, h, w, hg, wg, _stream(x))
@@ -114,7 +129,7 @@ def warp_dgrid(x: torch.Tensor, grid: torch.Tensor, g: torch.Tensor) -> torch.Te
     dgrid = torch.empty((b, hg, wg, 2), dtype=torch.float32, device=x.device)
     if g.numel() == 0:
         return dgrid.zero_()
-    fn = _fn("warp_dgrid", "lcgan_warp_dgrid", [_PTR] * 4 + [_INT] * 8 + [_PTR])
+    fn = _fn("warp_dgrid")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), grid.data_ptr(), g.data_ptr(), dgrid.data_ptr(), _DTYPES[x.dtype], _vec(x, g),
                 b, c, h, w, hg, wg, _stream(x))
@@ -140,10 +155,8 @@ def warp_dx(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     dx = torch.empty_like(g, memory_format=torch.channels_last)
     if g.numel() == 0:
         return dx
-    lib = _build.load("warp_dx")
-    lib.lcgan_warp_dx_scratch.restype = ctypes.c_int
-    partial = torch.empty(lib.lcgan_warp_dx_scratch(), dtype=torch.float32, device=g.device)
-    fn = _fn("warp_dx", "lcgan_warp_dx", [_PTR] * 4 + [_INT] * 6 + [_PTR])
+    fn = _fn("warp_dx")
+    partial = torch.empty(_DX_SCRATCH, dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         rc = fn(grid.data_ptr(), g.data_ptr(), partial.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype], _vec(g, dx),
                 b, c, h, w, _stream(g))

@@ -51,8 +51,8 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
 
-    def init_state(self, seed: int | None = None) -> TrainState:
-        return create_train_state(self.cfg, self.device, seed)
+    def init_state(self) -> TrainState:
+        return create_train_state(self.cfg, self.device)
 
     def draw_noise(self, state: TrainState, batch_size: int) -> Noise:
         """The iteration's six draws from the state's noise stream."""

@@ -192,8 +192,8 @@ def test_train_iteration_draws_seeded_noise():
     """The same seed gives the same iteration; the losses are finite."""
     results = []
     for _ in range(2):
-        trainer = Trainer(Config(**CFG, device="cpu"))
-        state = trainer.init_state(seed=3)
+        trainer = Trainer(Config(**CFG, device="cpu", seed=3))
+        state = trainer.init_state()
         batch = {k: torch.rand((4, 3, 32, 32), generator=torch.Generator().manual_seed(i)) * 2 - 1
                  for i, k in enumerate(("image", "geometry_change", "appearance_change"))}
         state, g_loss, d_loss = trainer.train_iteration(state, batch, 0)
