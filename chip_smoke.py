@@ -4,23 +4,27 @@
 
 1. Builds every CUDA kernel of the generation and training paths from
    lcgan_torch/ops/csrc with nvcc for sm_90a, one nvcc per source, in
-   parallel: warp_fwd, warp_dgrid, warp_dx.
+   parallel: warp_fwd, warp_dgrid, warp_dx, warp_dx_scatter.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, in fp32 (max abs error <= 1e-5, scaled by the
    gradient's magnitude where it exceeds 1: the gradients sum up to C·16
    products in another order) and bf16 (at most one bf16 ulp of the output
    scale: both round the same fp32 sum once), for flows at the tanh bound
-   (0.1) and at the trained magnitude (0.03). The error against torch's own
-   op (F.grid_sample, aten.grid_sampler_2d_backward) is printed beside it.
-   The two gradient kernels, called twice on the same inputs, must give
-   bitwise-equal outputs.
+   (0.1) and at the trained magnitude (0.03); warp_dx_scatter (the dx of
+   the narrow maps, C < 128) also at a flow far beyond the bound (0.6). The
+   error against torch's own op (F.grid_sample,
+   aten.grid_sampler_2d_backward) is printed beside it. The three gradient
+   kernels, called twice on the same inputs, must give bitwise-equal
+   outputs.
 3. Times each kernel, its plain version and the one PyTorch call that computes
    the same function (F.grid_sample and aten.grid_sampler_2d_backward, the
    yardsticks; the port never calls them) with CUDA events at the six warp
-   shapes of one batch of 8 (the forward in bf16, as generated, with
+   shapes of one 256² batch of 8 (the forward in bf16, as generated, with
    F.grid_sample on an fp32 copy since it takes no bf16 features with an fp32
-   grid; the gradients on fp32 features), beside the bound: the larger of
-   bytes over the card's memory rate and flops over its fp32 rate.
+   grid; the gradients on fp32 features), and warp_dx_scatter beside
+   warp_dx at the narrow maps of the 512² and 1024² recipes (512²c64 B=8,
+   1024²c32 B=4; fp32 and bf16; flows 0.1 and 0.03), beside the bound: the
+   larger of bytes over the card's memory rate and flops over its fp32 rate.
 4. Drives the generation path: `python -m lcgan_torch.cli --phase
    fake_image_generation` on a seeded flagship 256² generator (base_nf 128,
    max_nf 512, latents 64/512, bf16, batch 8), three batches. The kernel
@@ -28,29 +32,46 @@
    must have run 6 times per batch. The JPEGs must exist, the outputs be
    finite, and the same generator in fp32 must agree with the port's CPU
    path (the plain warp, held to the JAX package by the CPU tests).
-5. Drives the training path: `Trainer.train_iteration` of the flagship 256²
-   recipe (bf16, batch 8, seed 0, freezeD_start 2, freezeD_layer 5) for
-   epochs 0-3 (even, odd + R1, even frozen, odd frozen) on a seeded
-   synthetic batch. Counts set to 0 just before and read just after:
-   warp_fwd 24+12+24+12 = 72, warp_dgrid and warp_dx 18+6+18+6 = 48 each.
-   Losses finite, the frozen D leaves untouched by epochs 2-3, every other
-   leaf moved. Then times each variant alone (min of 3, a per-layer
+5. Drives one training iteration of the flagship 256² recipe:
+   `Trainer.train_iteration` (bf16, batch 8, seed 0, freezeD_start 2,
+   freezeD_layer 5) for epochs 0-3 (even, odd + R1, even frozen, odd frozen)
+   on a seeded synthetic batch. Counts set to 0 just before and read just
+   after: warp_fwd 24+12+24+12 = 72, warp_dgrid and warp_dx 18+6+18+6 = 48
+   each. Losses finite, the frozen D leaves untouched by epochs 2-3, every
+   other leaf moved. Then times each variant alone (min of 3, a per-layer
    figure), and the reference's 8-iteration mix (4 even, 1 odd + R1, 3 odd)
    through train_iteration as MIX_WINDOWS synchronized windows, printing all
-   the images over all the time (images/s). Last it runs four epochs at the
+   the images over all the time (images/s). Then it runs four epochs at the
    dryrun width in fp32 on the card and on the port's CPU path, which must
    agree.
-6. Prints the kernels as one JSON line, the card's name and power limit, and
-   last the ok line. Exits nonzero, printing no result, on any failure and
-   when no GPU is present.
+6. Drives the train phase, the main path of this slice: `python -m
+   lcgan_torch.cli --phase train` at the reference's 512² recipe (base_nf 64,
+   max_nf 512, latents 64/512, bf16, batch 8, freezeD_layer 4) on a seeded
+   synthetic folder of 512² JPEGs, epochs 0-3 with print and save firing.
+   Counts set to 0 just before and read just after: warp_fwd 7·12 = 84,
+   warp_dgrid 7·8 = 56, warp_dx 6·8 = 48 (the C >= 128 blocks),
+   warp_dx_scatter 1·8 = 8 (the 512²·C=64 block). args.txt, log.txt (the
+   JAX package's line), epoch.txt and model/state.pt must exist and the
+   losses be finite; a second call must resume from epoch.txt + 1, and
+   fake_image_generation must read the checkpoint. Then: the 8-iteration
+   mix fed by the port's own pipeline (MIX_WINDOWS_512 windows, images/s and
+   peak memory), an even step with and without deterministic algorithms,
+   an even-step profile, bit-exact resume at 512² in a fresh process, and
+   the training monitor once at full width (num_explore 2).
+7. Prints the kernels as one JSON line (launches from step 6), the card's
+   name and power limit, and last the ok line. Exits nonzero, printing no
+   result, on any failure and when no GPU is present.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -71,6 +92,12 @@ CHECK_SHAPES = [(8, 512, 8), (8, 512, 64), (8, 256, 128), (8, 128, 256)]
 FLOWS = [0.1, 0.03]
 FP32_TOL = 1e-5
 MIX_WINDOWS = 5  # timed passes over the training schedule's 8-iteration mix
+# (B, C, H) of the narrow-map warps (C < 128): the top block of the 512²
+# recipe, and of the 1024² one at its per-GPU batch of 4
+SCATTER_SHAPES = [(8, 64, 512), (4, 32, 1024)]
+SCATTER_FLOWS = [0.1, 0.03, 0.6]  # 0.6: far beyond the tanh bound
+MIX_WINDOWS_512 = 3
+KERNELS = ("warp_fwd", "warp_dgrid", "warp_dx", "warp_dx_scatter")
 
 failures: list[str] = []
 
@@ -139,7 +166,7 @@ def build_kernels() -> None:
     from lcgan_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build(["warp_fwd", "warp_dgrid", "warp_dx"])
+    reports = _build.build(list(KERNELS))
     print(f"build: {sorted(reports) or 'already built'} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, report in reports.items():
         for line in report.splitlines():
@@ -395,7 +422,8 @@ def run_generation_path() -> int:
     from lcgan_torch.models.generator import build_generator
     from lcgan_torch.ops import warp
     from lcgan_torch.train.loop import load_ema_generator
-    from lcgan_torch.utils.checkpoint import checkpoint_path, save_generator
+    from lcgan_torch.train.steps import Trainer
+    from lcgan_torch.utils.checkpoint import save_state, state_path
     from lcgan_torch.utils.media import make_grid, to_uint8
 
     num_fakes = 3
@@ -405,8 +433,10 @@ def run_generation_path() -> int:
                      batch_size=8, seed=0)
         cfg.make_run_dirs()
         cfg.dump(os.path.join(run, "args.txt"))
-        g = build_generator(cfg, torch.Generator().manual_seed(0))
-        save_generator(checkpoint_path(cfg), g, g)
+        state = Trainer(cfg).init_state()  # a fresh run's checkpoint: EMA = G
+        save_state(state_path(cfg), state)
+        g = state.generator
+        del state
         print(f"generation path: flagship 256² generator, {sum(p.numel() for p in g.parameters()) / 1e6:.2f} M params", flush=True)
 
         warp.warp_fwd.launches = 0
@@ -478,9 +508,9 @@ def synthetic_batch(cfg, device, seed: int = 0) -> dict:
             for k in ("image", "geometry_change", "appearance_change")}
 
 
-def run_training_path() -> dict:
-    """Epochs 0-3 of the flagship 256² recipe through Trainer.train_iteration;
-    returns the kernels' launches."""
+def run_training_path() -> None:
+    """Epochs 0-3 of the flagship 256² recipe through Trainer.train_iteration,
+    then its timings."""
     import torch
 
     from lcgan_torch.config import Config
@@ -499,7 +529,8 @@ def run_training_path() -> dict:
     print(f"training path: flagship 256² recipe, G {n_g:.2f} M + D {n_d:.2f} M params, bf16, batch 8", flush=True)
 
     initial = {name: snapshot(m) for name, m in (("G", state.generator), ("D", state.discriminator), ("EMA", state.ema))}
-    warp.warp_fwd.launches = warp.warp_dgrid.launches = warp.warp_dx.launches = 0
+    for k in KERNELS:
+        getattr(warp, k).launches = 0
     losses, after_epoch1 = [], None
     t0 = time.perf_counter()
     for epoch in range(4):
@@ -509,10 +540,11 @@ def run_training_path() -> dict:
             after_epoch1 = snapshot(state.discriminator)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(warp_fwd=warp.warp_fwd.launches, warp_dgrid=warp.warp_dgrid.launches, warp_dx=warp.warp_dx.launches)
+    launches = {k: getattr(warp, k).launches for k in KERNELS}
     print(f"training path: epochs 0-3 in {seconds:.3f} s (first calls included); losses (g, d) {losses}", flush=True)
     expect = dict(warp_fwd=cfg.num_blocks * (4 + 2 + 4 + 2), warp_dgrid=cfg.num_blocks * (3 + 1 + 3 + 1))
     expect["warp_dx"] = expect["warp_dgrid"]
+    expect["warp_dx_scatter"] = 0  # every block of the 256² recipe has C >= 128
     for name, n in launches.items():
         check(n == expect[name], f"{name} launches on the training path: {n} (expect {expect[name]})")
     check(all(math.isfinite(v) for pair in losses for v in pair), "training losses finite")
@@ -560,7 +592,6 @@ def run_training_path() -> dict:
                     iters=2, top=16, what="even train step")
     del state, trainer, batch, initial, after_epoch1, final_d
     torch.cuda.empty_cache()
-    return launches
 
 
 def check_training_card_vs_cpu() -> None:
@@ -603,12 +634,355 @@ def check_training_card_vs_cpu() -> None:
           f"worst leaf rel err {leaf_err:.3g} at {where} (tol 1e-3 of the leaf's scale), {len(cpu)} leaves")
 
 
+def check_dx_scatter() -> float:
+    """warp_dx_scatter vs the plain backward at the narrow maps of the 512²
+    and 1024² recipes, for flows up to far beyond the tanh bound, and its
+    determinism; returns the largest fp32 error."""
+    import torch
+
+    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain_backward
+    from lcgan_torch.ops.warp import warp_dx_scatter
+
+    worst = 0.0
+    for b, c, h in SCATTER_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in SCATTER_FLOWS:
+                x, grid = warp_inputs(b, c, h, s, dtype)
+                g = cotangent_like(x)
+                out = warp_dx_scatter(grid, g).float()
+                torch.cuda.synchronize()
+                want = grid_sample_bicubic_plain_backward(x, grid, g)[0].float()
+                lib = library_backward(x, grid, g, [True, False])[0].float()
+                err = (out - want).abs().max().item()
+                lib_err = (out - lib).abs().max().item()
+                tag = f"warp_dx_scatter {b}x{c}x{h}x{h} {str(dtype)[6:]} s={s}"
+                if dtype == torch.float32:
+                    tol = fp32_tol(want)
+                    worst = max(worst, err)
+                    check(err <= tol, f"{tag}: max_abs_err {err:.3g} (tol {tol:.3g} = 1e-5 x max(1, scale)); "
+                                      f"vs aten backward {lib_err:.3g}")
+                else:
+                    ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+                    check(err <= ulp, f"{tag}: max_abs_err {err:.3g} (tol 1 bf16 ulp = {ulp:.3g}); "
+                                      f"vs aten backward {lib_err:.3g}")
+                del x, grid, g, out, want, lib
+            x, grid = warp_inputs(b, c, h, 0.1, dtype, seed=2)
+            g = cotangent_like(x, seed=3)
+            same = torch.equal(warp_dx_scatter(grid, g), warp_dx_scatter(grid, g))
+            check(same, f"determinism {b}x{c}x{h}x{h} {str(dtype)[6:]}: warp_dx_scatter bitwise equal {same}")
+            del x, grid, g
+    return worst
+
+
+def time_dx_scatter(bw: float, flops: float) -> dict:
+    """warp_dx_scatter beside warp_dx (the route it replaces at C < 128), the
+    plain backward and aten's feature gradient, at the narrow maps of the
+    512² and 1024² recipes. Returns the row of the 512² train path's call
+    (512²c64 B=8 bf16, s = 0.1)."""
+    import torch
+
+    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain_backward
+    from lcgan_torch.ops.warp import warp_dx, warp_dx_scatter
+
+    main_row = None
+    for b, c, h in SCATTER_SHAPES:
+        for s in FLOWS:
+            x, grid = warp_inputs(b, c, h, s, torch.float32)
+            g = cotangent_like(x)
+            xb, gb = x.bfloat16().contiguous(memory_format=torch.channels_last), g.bfloat16().contiguous(memory_format=torch.channels_last)
+            # turns K, L, L, K; the lower of each pair (fp32)
+            k1 = cuda_ms(lambda: warp_dx_scatter(grid, g))
+            l1 = cuda_ms(lambda: library_backward(x, grid, g, [True, False]), 3)
+            l2 = cuda_ms(lambda: library_backward(x, grid, g, [True, False]), 3)
+            k2 = cuda_ms(lambda: warp_dx_scatter(grid, g))
+            kb = cuda_ms(lambda: warp_dx_scatter(grid, gb))
+            old = cuda_ms(lambda: warp_dx(grid, g), 5)
+            old_b = cuda_ms(lambda: warp_dx(grid, gb), 5)
+            plain = cuda_ms(lambda: grid_sample_bicubic_plain_backward(x, grid, g), 2)
+            plain_b = cuda_ms(lambda: grid_sample_bicubic_plain_backward(xb, grid, gb), 2)
+            n_out = b * h * h
+            nflops = 32 * c * n_out
+            for dtype, es, kernel_ms, old_ms, plain_ms in (("fp32", 4, min(k1, k2), old, plain),
+                                                           ("bf16", 2, kb, old_b, plain_b)):
+                nbytes = 2 * n_out * c * es + n_out * 2 * 4  # g read, dx written; the grid read
+                bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
+                row = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=min(l1, l2), bound_ms=max(bytes_ms, flops_ms),
+                           bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+                print(f"time warp_dx_scatter {b}x{c}x{h}x{h} {dtype} s={s}: kernel {kernel_ms:.4f} ms, "
+                      f"warp_dx.cu {old_ms:.4f} ms ({old_ms / kernel_ms:.1f}x), plain backward {plain_ms:.4f} ms, "
+                      f"aten backward (fp32, dx only) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                      f"({nbytes / 1e6:.1f} MB, {row['bound_by']}), kernel at {row['bound_ms'] / kernel_ms:.1%} of bound",
+                      flush=True)
+                if (b, c, h, s, dtype) == (8, 64, 512, 0.1, "bf16"):
+                    main_row = row
+            del x, grid, g, xb, gb
+    return main_row
+
+
+def synthetic_jpeg_folder(root: str, n: int, size: int) -> None:
+    """``n`` seeded size² JPEGs under root/train/x: smooth colour fields
+    with grain, as photos compress."""
+    import numpy as np
+    from PIL import Image
+
+    d = os.path.join(root, "train", "x")
+    os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        rng = np.random.default_rng(i)
+        low = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).resize((size, size), Image.BICUBIC)
+        img = np.asarray(low, np.int16) + rng.integers(-8, 9, (size, size, 3))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(os.path.join(d, f"{i:03d}.jpg"), quality=90)
+
+
+TRAIN_512 = ["--img_resolution", "512", "--batch_size", "8", "--freezeD_layer", "4", "--num_data_workers", "4"]
+LOG_LINE = re.compile(r"^epoch:(\d+), elapsed:\d+:\d\d:\d\d, g_loss:(-?\d+\.\d{6}), d_loss:(-?\d+\.\d{6}) $")
+
+
+def run_cli(argv) -> str:
+    """cli.main(argv), its standard output captured and echoed."""
+    from lcgan_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    text = out.getvalue()
+    for line in text.splitlines():
+        if not line.startswith("Config("):
+            print(f"  | {line}", flush=True)
+    return text
+
+
+def log_epochs(run: str):
+    with open(os.path.join(run, "log.txt")) as f:
+        matches = [LOG_LINE.match(line) for line in f.read().splitlines()]
+    if not all(matches):
+        return None
+    return [(int(m[1]), float(m[2]), float(m[3])) for m in matches]
+
+
+def run_train_phase(data: str, run: str) -> dict:
+    """The train phase at the 512² recipe through the CLI: epochs 0-3, then a
+    resumed call for 4-5, then generation from its checkpoint. Returns the
+    kernels' launches over epochs 0-3."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from lcgan_torch import native
+    from lcgan_torch.ops import warp
+
+    print(f"train phase: 512² recipe, input pipeline on the "
+          f"{'native C++ loader' if native.available() else 'Python/cv2 decoder (native loader unavailable)'}",
+          flush=True)
+    base = ["--phase", "train", "--dataset_path", data, "--model_name", run, *TRAIN_512,
+            "--save_interval", "3", "--print_interval", "1", "--show_interval", "1000"]
+    for k in KERNELS:
+        getattr(warp, k).launches = 0
+    t0 = time.perf_counter()
+    out = run_cli(base + ["--epoch", "3"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: getattr(warp, k).launches for k in KERNELS}
+    print(f"train phase: epochs 0-3 through the CLI in {seconds:.3f} s (build, first calls, data and one save included)",
+          flush=True)
+    expect = dict(warp_fwd=7 * 12, warp_dgrid=7 * 8, warp_dx=6 * 8, warp_dx_scatter=1 * 8)
+    for name, n in launches.items():
+        check(n == expect[name], f"{name} launches on the 512² train phase, epochs 0-3: {n} (expect {expect[name]})")
+    lines = log_epochs(run)
+    files = {f: os.path.exists(os.path.join(run, f)) for f in ("args.txt", "log.txt", "epoch.txt", "model/state.pt")}
+    check(all(files.values()) and "restart training from" not in out, f"train phase files {files}")
+    check(lines is not None and [e for e, _, _ in lines] == [0, 1, 2, 3]
+          and all(math.isfinite(v) for _, g, d in lines for v in (g, d)),
+          f"log.txt in the JAX package's line format, epochs 0-3, finite losses: {lines}")
+    with open(os.path.join(run, "epoch.txt")) as f:
+        saved = f.read().strip()
+    check(saved == "3", f"epoch.txt after the first call: {saved} (expect 3)")
+
+    t0 = time.perf_counter()
+    out = run_cli(base + ["--epoch", "5"])
+    print(f"train phase: resumed call in {time.perf_counter() - t0:.3f} s", flush=True)
+    lines = log_epochs(run) or []
+    check("restart training from: 4" in out and [e for e, _, _ in lines] == [0, 1, 2, 3, 4, 5]
+          and all(math.isfinite(v) for _, g, d in lines for v in (g, d)),
+          f"second call resumed from epoch.txt + 1: log epochs {[e for e, _, _ in lines]}")
+
+    run_cli(["--phase", "fake_image_generation", "--model_name", run, "--num_fakes", "1"])
+    path = os.path.join(run, "fakes", "0000_images.jpg")
+    shape = np.asarray(Image.open(path)).shape if os.path.exists(path) else None
+    check(shape == (512 * 8, 512, 3), f"fake_image_generation from the train phase's checkpoint: {shape}")
+    return launches
+
+
+def run_train_512(data: str, run: str) -> None:
+    """The 512² recipe on the port's own pipeline: the 8-iteration mix as
+    synchronized windows (images/s, peak memory), an even step with and
+    without deterministic algorithms, an even-step profile, and the monitor
+    once at full width."""
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.gen.artifacts import monitor_current_result
+    from lcgan_torch.train.loop import deterministic_algorithms, make_train_pipeline
+    from lcgan_torch.train.steps import Trainer
+
+    cfg = Config(dataset_path=data, model_name=run, img_resolution=512, batch_size=8, freezeD_layer=4,
+                 num_data_workers=4)
+    with deterministic_algorithms():
+        trainer = Trainer(cfg)
+        state = trainer.init_state()
+        data_it = make_train_pipeline(cfg, trainer.device)
+        n_g = sum(p.numel() for p in state.generator.parameters()) / 1e6
+        n_d = sum(p.numel() for p in state.discriminator.parameters()) / 1e6
+        print(f"512² recipe: G {n_g:.2f} M + D {n_d:.2f} M params, bf16, batch 8", flush=True)
+        for epoch in range(8):  # first calls: cuDNN's algorithm choice for each variant
+            state, _, _ = trainer.train_iteration(state, next(data_it), epoch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        windows = []
+        for _ in range(MIX_WINDOWS_512):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for epoch in range(8):
+                state, g_loss, d_loss = trainer.train_iteration(state, next(data_it), epoch)
+            torch.cuda.synchronize()
+            windows.append(time.perf_counter() - t0)
+        n_img = MIX_WINDOWS_512 * 8 * cfg.batch_size
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"train throughput at 512², the 8-iteration mix fed by the port's pipeline, deterministic, "
+              f"{MIX_WINDOWS_512} windows: {n_img} images in {sum(windows):.3f} s = {n_img / sum(windows):.2f} images/s "
+              f"(windows {', '.join(f'{w * 1e3:.1f}' for w in windows)} ms); peak memory {peak:.2f} GiB", flush=True)
+        check(math.isfinite(g_loss.item()) and math.isfinite(d_loss.item()), "512² mix losses finite")
+        batch = next(data_it)
+
+    def even_step_ms(deterministic: bool):
+        ctx = deterministic_algorithms() if deterministic else contextlib.nullcontext()
+        times = []
+        with ctx:
+            for _ in range(3):
+                noise = trainer.draw_noise(state, cfg.batch_size)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    # turns D, N, N, D; each the min of 3 (the first call of the free mode picks its own algorithms)
+    runs = {True: [], False: []}
+    for det in (True, False, False, True):
+        runs[det] += even_step_ms(det)
+    det_ms, free_ms = min(runs[True]), min(runs[False])
+    print(f"train step even at 512²: deterministic {det_ms:.2f} ms, not deterministic {free_ms:.2f} ms "
+          f"(deterministic mode costs {det_ms / free_ms - 1:+.1%}; all: {', '.join(f'{t:.1f}' for t in runs[True])} / "
+          f"{', '.join(f'{t:.1f}' for t in runs[False])})", flush=True)
+    with deterministic_algorithms():
+        noise = trainer.draw_noise(state, cfg.batch_size)
+        profile_forward(lambda: trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False),
+                        iters=2, top=16, what="even train step at 512² (deterministic)")
+
+    epoch = 8 * (MIX_WINDOWS_512 + 1)
+    t0 = time.perf_counter()
+    monitor_current_result(cfg, state.ema, trainer.device, epoch=epoch, num_explore=2, w_psi=cfg.w_psi,
+                           images_per_output=cfg.geo_noise_dim)
+    torch.cuda.synchronize()
+    videos = sorted(f for f in os.listdir(cfg.run_dirs()["samples"]) if f.endswith((".mp4", ".gif")))
+    print(f"monitor at full width (num_explore 2, 64 images a frame): {time.perf_counter() - t0:.3f} s", flush=True)
+    check([os.path.splitext(v)[0] for v in videos] == [f"appearance_{epoch}_0", f"geometry_{epoch}_0"]
+          and all(os.path.getsize(os.path.join(cfg.run_dirs()["samples"], v)) > 0 for v in videos),
+          f"monitor_current_result wrote {videos}")
+    del state, trainer, data_it, batch
+    torch.cuda.empty_cache()
+
+
+RESUME_CFG = dict(img_resolution=512, batch_size=8, freezeD_layer=4, freezeD_start=3)
+
+
+def resume_batch(epoch: int) -> dict:
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(epoch)
+    shape = (8, 3, 512, 512)
+    return {k: torch.rand(shape, generator=g, device="cuda") * 2 - 1
+            for k in ("image", "geometry_change", "appearance_change")}
+
+
+def resume_worker(run: str, start: int, end: int) -> int:
+    """The fresh-process half of check_resume_512: restore, train, save."""
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.loop import deterministic_algorithms
+    from lcgan_torch.train.steps import Trainer
+    from lcgan_torch.utils.checkpoint import load_state, save_state, state_path
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(model_name=run, **RESUME_CFG)
+    with deterministic_algorithms():
+        trainer = Trainer(cfg)
+        state = trainer.init_state()
+        load_state(state_path(cfg), state)
+        for epoch in range(start, end):
+            state, _, _ = trainer.train_iteration(state, resume_batch(epoch), epoch)
+    save_state(os.path.join(run, "model_resumed", "state.pt"), state)
+    return 0
+
+
+def check_resume_512(run: str) -> None:
+    """Epochs 0-1, save, then 2-3 (even; odd, frozen) in a fresh process must
+    equal an uninterrupted 0-3 bit for bit: every leaf and buffer of G, D and
+    EMA, both Adam v trees and counts, step and the noise generator's state."""
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.loop import deterministic_algorithms
+    from lcgan_torch.train.steps import Trainer
+    from lcgan_torch.utils.checkpoint import load_state, save_state, state_path
+
+    cfg = Config(model_name=run, **RESUME_CFG)
+    n, m = 2, 2
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        trainer = Trainer(cfg)
+        state = trainer.init_state()
+        for epoch in range(n):
+            state, _, _ = trainer.train_iteration(state, resume_batch(epoch), epoch)
+        save_state(state_path(cfg), state)
+        for epoch in range(n, n + m):
+            state, _, _ = trainer.train_iteration(state, resume_batch(epoch), epoch)
+        want = state.state_dict()
+        del state
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--resume-worker", run, str(n), str(n + m)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        check(False, f"resume worker failed (rc {proc.returncode}): {proc.stderr[-2000:]}")
+        return
+    resumed = trainer.init_state()
+    load_state(os.path.join(run, "model_resumed", "state.pt"), resumed)
+    got = resumed.state_dict()
+    bad = [f"{part}.{k}" for part in ("generator", "discriminator", "ema")
+           for k, v in want[part].items() if not torch.equal(got[part][k], v)]
+    bad += [f"{opt}.v.{k}" for opt in ("g_opt", "d_opt") for k, v in want[opt]["v"].items()
+            if not torch.equal(got[opt]["v"][k], v)]
+    n_leaves = sum(len(want[p]) for p in ("generator", "discriminator", "ema")) + len(want["g_opt"]["v"]) + len(want["d_opt"]["v"])
+    same_rest = (got["step"] == want["step"] == n + m and got["g_opt"]["count"] == want["g_opt"]["count"]
+                 and got["d_opt"]["count"] == want["d_opt"]["count"] and torch.equal(got["rng"], want["rng"]))
+    check(not bad and same_rest, f"bit-exact resume at 512² in a fresh process (epochs 0-1 | 2-3): {n_leaves} tensors, "
+                                 f"mismatches {bad[:5]}, step/counts/rng equal {same_rest} "
+                                 f"({time.perf_counter() - t0:.1f} s)")
+    del resumed, trainer
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # the train phase runs deterministic cuBLAS, which reads this before the first CUDA call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -620,17 +994,24 @@ def main() -> int:
     bw, flops = card_rates(name)
 
     build_kernels()
-    worst = dict(warp_fwd=check_warp_kernel(), **check_backward_kernels())
-    times = dict(warp_fwd=time_warp_kernel(bw, flops), **time_backward_kernels(bw, flops))
+    worst = dict(warp_fwd=check_warp_kernel(), **check_backward_kernels(), warp_dx_scatter=check_dx_scatter())
+    times = dict(warp_fwd=time_warp_kernel(bw, flops), **time_backward_kernels(bw, flops),
+                 warp_dx_scatter=time_dx_scatter(bw, flops))
     run_generation_path()
-    launches = run_training_path()
+    run_training_path()
     check_training_card_vs_cpu()
+    with tempfile.TemporaryDirectory(prefix="lcgan_smoke_512_") as tmp:
+        data = os.path.join(tmp, "data")
+        synthetic_jpeg_folder(data, 32, 512)
+        launches = run_train_phase(data, os.path.join(tmp, "run"))  # the main path: counts for the JSON line
+        run_train_512(data, os.path.join(tmp, "mix"))
+        check_resume_512(os.path.join(tmp, "resume"))
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
     replaces = dict(warp_fwd="lcgan_tpu/ops/warp_pallas.py:442", warp_dgrid="lcgan_tpu/ops/warp_pallas.py:835",
-                    warp_dx="lcgan_tpu/ops/warp_pallas.py:901")
+                    warp_dx="lcgan_tpu/ops/warp_pallas.py:901", warp_dx_scatter="lcgan_tpu/ops/warp_pallas.py:988")
     kernels = [dict(
         name=name,
         route="cuda",
@@ -643,7 +1024,7 @@ def main() -> int:
         bound_ms=times[name]["bound_ms"],
         bound_by=times[name]["bound_by"],
         library_ms=times[name]["library_ms"],
-    ) for name in ("warp_fwd", "warp_dgrid", "warp_dx")]
+    ) for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -651,4 +1032,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-worker"]:  # check_resume_512's fresh process
+        sys.exit(resume_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
     sys.exit(main())

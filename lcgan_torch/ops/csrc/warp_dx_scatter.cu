@@ -1,0 +1,291 @@
+// Feature gradient of the bicubic feature warp at narrow maps (C < 128), for
+// Hopper (sm_90a).
+//
+// For out = F.grid_sample(x, grid, mode='bicubic', padding_mode='zeros',
+// align_corners=False) with cotangent g, on maps where the grid has the
+// features' size (Hg = H, Wg = W, the generator's only use):
+//
+//   dX[b,u,v,c] = sum_{output p} K(fy_p - u) K(fx_p - v) g[b,p,c]
+//
+// over the 16 taps of each p, as in the forward.
+//
+// It replaces the TPU kernel _dx_scatter_kernel and its overlap-add
+// _overlap_add (lcgan_tpu/ops/warp_pallas.py), which scatter output tiles
+// into fp32 slabs with banded matmuls because a TPU gathers slowly. Here the
+// scatter is inverted through an index instead:
+//
+//   1. warp_dxs_bucket_kernel: each output pixel's bucket is its base tap
+//      (floor(fy) - 1, floor(fx) - 1), rounded as the forward rounds it
+//      (warp_common.cuh); an integer histogram counts each bucket. A pixel
+//      whose taps all miss the map gets no bucket.
+//   2. warp_dxs_scan_tiles_kernel, warp_dxs_scan_carry_kernel: an exclusive
+//      prefix of the counts gives each bucket its range of a list (CSR).
+//   3. warp_dxs_place_kernel: each pixel takes a slot of its bucket's range
+//      with an integer atomic; warp_dxs_sort_kernel then sorts each range by
+//      pixel index, so the list is the same on every run (a stable counting
+//      sort).
+//   4. warp_dxs_gather_kernel: one thread per (input pixel, 16-byte channel
+//      vector) sums over the 16 buckets whose pixels can tap it. The four buckets
+//      (by, v-3 .. v) of one bucket row are adjacent in the list, so it walks
+//      four ranges, bucket rows in ascending order, then bucket, then pixel.
+//      It recomputes each pixel's two weights from the grid.
+//
+// The work is about 16 B*H*W*C multiply-adds and a sort of B*H*W integers,
+// whatever the grid: the result is exact for any grid and needs no bound on
+// the flow. Every sum has a fixed order and no float atomics are used: the
+// result is bitwise the same on every run.
+//
+// What bounds it: bytes. One read of g and the grid and one write of dx,
+// against 16 reads of each g row (from L2: a row is read by the 16 input
+// pixels around its taps, which run close together) plus the index passes.
+//
+// C interface (ctypes): lcgan_warp_dx_scatter returns cudaGetLastError()
+// after the launches, 0 on success.
+
+#include <climits>
+
+#include "warp_common.cuh"
+
+namespace {
+
+using namespace lcgan;
+
+constexpr int kThreads = 256;
+constexpr int kScanItems = 4;
+constexpr int kScanTile = kThreads * kScanItems;  // counts scanned by one block
+constexpr int kInsertionMax = 32;                 // longer buckets are heap-sorted
+
+// Tap weight i (0..3) of fractional offset t: cubic_weights(t)[i].
+__device__ __forceinline__ float cubic_tap(float t, int i) {
+  return i == 0 ? cubic_far(t + 1.f) : i == 1 ? cubic_near(t) : i == 2 ? cubic_near(1.f - t) : cubic_far(2.f - t);
+}
+
+// A bucket's key: (b, by + 3, bx + 3) row-major over (B, H + 3, W + 3). Every
+// base with a tap on the map lies in [-3, size - 1].
+__device__ __forceinline__ int bucket_key(int b, int by, int bx, int H, int W) {
+  return (b * (H + 3) + by + 3) * (W + 3) + bx + 3;
+}
+
+__global__ void __launch_bounds__(kThreads)
+warp_dxs_bucket_kernel(const float* __restrict__ grid, int* __restrict__ key, int* __restrict__ count, int H,
+                       int W, int npix) {
+  const int pix = blockIdx.x * kThreads + threadIdx.x;
+  if (pix >= npix) return;
+  const int b = pix / (H * W);
+  const int by = (int)floorf(unnormalize(grid[2 * (long long)pix + 1], H)) - 1;
+  const int bx = (int)floorf(unnormalize(grid[2 * (long long)pix], W)) - 1;
+  int k = -1;
+  if (by >= -3 && by < H && bx >= -3 && bx < W) {
+    k = bucket_key(b, by, bx, H, W);
+    atomicAdd(&count[k], 1);
+  }
+  key[pix] = k;
+}
+
+// Exclusive prefix of count[0, n) within each tile of kScanTile; each tile's
+// total into tile_sum.
+__global__ void __launch_bounds__(kThreads)
+warp_dxs_scan_tiles_kernel(const int* __restrict__ count, int* __restrict__ offset, int* __restrict__ tile_sum,
+                           int n) {
+  __shared__ int s_warp[kThreads / 32];
+  const int base = blockIdx.x * kScanTile + threadIdx.x * kScanItems;
+  int v[kScanItems];
+  int sum = 0;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    v[i] = base + i < n ? count[base + i] : 0;
+    sum += v[i];
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += t;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int warp_base = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    const int t = s_warp[w];
+    warp_base += w < warp ? t : 0;
+    total += t;
+  }
+  int run = warp_base + incl - sum;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    if (base + i < n) offset[base + i] = run;
+    run += v[i];
+  }
+  if (threadIdx.x == 0) tile_sum[blockIdx.x] = total;
+}
+
+// Adds to each tile's prefixes the totals of the tiles before it.
+__global__ void __launch_bounds__(kThreads)
+warp_dxs_scan_carry_kernel(int* __restrict__ offset, const int* __restrict__ tile_sum, int n) {
+  __shared__ int s_sum[kThreads];
+  int c = 0;
+  for (int i = threadIdx.x; i < (int)blockIdx.x; i += kThreads) c += tile_sum[i];
+  s_sum[threadIdx.x] = c;
+  __syncthreads();
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) s_sum[threadIdx.x] += s_sum[threadIdx.x + s];
+    __syncthreads();
+  }
+  const int carry = s_sum[0];
+  const int base = blockIdx.x * kScanTile;
+  for (int i = threadIdx.x; i < kScanTile && base + i < n; i += kThreads) offset[base + i] += carry;
+}
+
+// Each bucketed pixel takes one slot of its bucket's range; count[k] falls
+// back to 0.
+__global__ void __launch_bounds__(kThreads)
+warp_dxs_place_kernel(const int* __restrict__ key, const int* __restrict__ offset, int* __restrict__ count,
+                      int* __restrict__ list, int npix) {
+  const int pix = blockIdx.x * kThreads + threadIdx.x;
+  if (pix >= npix) return;
+  const int k = key[pix];
+  if (k < 0) return;
+  list[offset[k] + atomicSub(&count[k], 1) - 1] = pix;
+}
+
+__device__ void sift_down(int* a, int root, int n) {
+  while (true) {
+    int child = 2 * root + 1;
+    if (child >= n) return;
+    if (child + 1 < n && a[child + 1] > a[child]) ++child;
+    if (a[root] >= a[child]) return;
+    const int t = a[root];
+    a[root] = a[child];
+    a[child] = t;
+    root = child;
+  }
+}
+
+// Sorts each bucket's range ascending: insertion sort for the short ranges
+// (nearly all), heap sort for long ones (a grid that gathers many pixels
+// onto one spot).
+__global__ void __launch_bounds__(kThreads)
+warp_dxs_sort_kernel(const int* __restrict__ offset, int* __restrict__ list, int nkeys) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= nkeys) return;
+  const int lo = offset[k];
+  const int n = offset[k + 1] - lo;
+  if (n < 2) return;
+  int* a = list + lo;
+  if (n <= kInsertionMax) {
+    for (int i = 1; i < n; ++i) {
+      const int x = a[i];
+      int j = i - 1;
+      while (j >= 0 && a[j] > x) {
+        a[j + 1] = a[j];
+        --j;
+      }
+      a[j + 1] = x;
+    }
+    return;
+  }
+  for (int i = n / 2 - 1; i >= 0; --i) sift_down(a, i, n);
+  for (int end = n - 1; end > 0; --end) {
+    const int t = a[0];
+    a[0] = a[end];
+    a[end] = t;
+    sift_down(a, 0, end);
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+warp_dxs_gather_kernel(const float* __restrict__ grid, const T* __restrict__ g, const int* __restrict__ offset,
+                       const int* __restrict__ list, T* __restrict__ dx, int C, int H, int W, int nvec,
+                       long long nthreads) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= nthreads) return;
+  const int cv = (int)(t % nvec);
+  const int pix = (int)(t / nvec);  // the input pixel (b, u, v)
+  const int v = pix % W;
+  const int u = (pix / W) % H;
+  const int b = pix / (H * W);
+  const int c = cv * VEC;
+
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+
+  for (int dy = 3; dy >= 0; --dy) {  // bucket rows by = u - dy, ascending
+    const int k0 = bucket_key(b, u - dy, v - 3, H, W);  // buckets (by, v - 3 .. v)
+    const int hi = offset[k0 + 4];
+    for (int e = offset[k0]; e < hi; ++e) {
+      const long long p = list[e];
+      const float fx = unnormalize(grid[2 * p], W);
+      const float fy = unnormalize(grid[2 * p + 1], H);
+      const float y0 = floorf(fy), x0 = floorf(fx);
+      const float w = cubic_tap(fy - y0, dy) * cubic_tap(fx - x0, v - ((int)x0 - 1));
+      float gv[VEC];
+      Vec<T, VEC>::load(g + p * C + c, gv);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] += gv[k] * w;
+    }
+  }
+  Vec<T, VEC>::store(dx + (long long)pix * C + c, acc);
+}
+
+inline unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+template <typename T, int VEC>
+int launch(const void* grid_, const void* g, int* scratch, long long scratch_ints, void* dx, int B, int C,
+           int H, int W, cudaStream_t stream) {
+  const long long npix = (long long)B * H * W;
+  const long long nkeys = (long long)B * (H + 3) * (W + 3);
+  const long long ncount = nkeys + 1;  // count[nkeys] stays 0: offset[nkeys] is the total
+  const long long ntiles = (ncount + kScanTile - 1) / kScanTile;
+  if (npix > INT_MAX || ncount > INT_MAX - kScanTile) return (int)cudaErrorInvalidValue;
+  if (scratch_ints < 2 * npix + 2 * ncount + ntiles) return (int)cudaErrorInvalidValue;
+  int* key = scratch;
+  int* list = key + npix;
+  int* count = list + npix;
+  int* offset = count + ncount;
+  int* tile_sum = offset + ncount;
+  const float* grid = static_cast<const float*>(grid_);
+
+  int err = (int)cudaMemsetAsync(count, 0, ncount * sizeof(int), stream);
+  if (err) return err;
+  warp_dxs_bucket_kernel<<<blocks_for(npix), kThreads, 0, stream>>>(grid, key, count, H, W, (int)npix);
+  warp_dxs_scan_tiles_kernel<<<(unsigned)ntiles, kThreads, 0, stream>>>(count, offset, tile_sum, (int)ncount);
+  warp_dxs_scan_carry_kernel<<<(unsigned)ntiles, kThreads, 0, stream>>>(offset, tile_sum, (int)ncount);
+  warp_dxs_place_kernel<<<blocks_for(npix), kThreads, 0, stream>>>(key, offset, count, list, (int)npix);
+  warp_dxs_sort_kernel<<<blocks_for(nkeys), kThreads, 0, stream>>>(offset, list, (int)nkeys);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+
+  const int nvec = C / VEC;
+  const long long nthreads = npix * nvec;
+  if ((nthreads + kThreads - 1) / kThreads > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  warp_dxs_gather_kernel<T, VEC><<<blocks_for(nthreads), kThreads, 0, stream>>>(
+      grid, static_cast<const T*>(g), offset, list, static_cast<T*>(dx), C, H, W, nvec, nthreads);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. grid: (B, H, W, 2) fp32 contiguous; g:
+// (B, H, W, C) NHWC contiguous; scratch: int32 workspace of scratch_ints
+// (2 B*H*W + 2 (nkeys + 1) + ceil((nkeys + 1) / 1024), nkeys = B (H+3) (W+3));
+// dx: (B, H, W, C) NHWC contiguous in g's dtype. vec: 1 to force scalar loads
+// (C not a multiple of the vector width, or pointers not 16-byte aligned),
+// else 16-byte vectors.
+extern "C" int lcgan_warp_dx_scatter(const void* grid, const void* g, void* scratch, long long scratch_ints,
+                                     void* dx, int dtype, int vec, int B, int C, int H, int W, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* ws = static_cast<int*>(scratch);
+  if (dtype == 0) {
+    return vec ? launch<float, 4>(grid, g, ws, scratch_ints, dx, B, C, H, W, s)
+               : launch<float, 1>(grid, g, ws, scratch_ints, dx, B, C, H, W, s);
+  }
+  if (dtype == 1) {
+    return vec ? launch<__nv_bfloat16, 8>(grid, g, ws, scratch_ints, dx, B, C, H, W, s)
+               : launch<__nv_bfloat16, 1>(grid, g, ws, scratch_ints, dx, B, C, H, W, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}

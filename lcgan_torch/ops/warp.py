@@ -10,13 +10,15 @@ padding_mode='zeros', align_corners=False. It is the autograd Function
   * on CPU tensors its forward and backward are the plain versions
     (``ops.grid_sample``);
   * on CUDA tensors the forward launches ``csrc/warp_fwd.cu`` and the
-    backward ``csrc/warp_dgrid.cu`` (the grid's gradient) and
-    ``csrc/warp_dx.cu`` (the features'), or raises. Nothing falls back to
-    the plain versions.
+    backward ``csrc/warp_dgrid.cu`` (the grid's gradient) and, for the
+    features', ``csrc/warp_dx.cu`` at C >= 128 or ``csrc/warp_dx_scatter.cu``
+    at C < 128 (the split of the JAX package's ``_vjp_bwd``), or raises.
+    Nothing falls back to the plain versions.
 
-The dx kernel measures its window from the grid on the device, so the
-gradient is exact for any grid, as the forward is; it needs Hg = H and
-Wg = W, the generator's only use.
+Both dx kernels are exact for any grid, as the forward is (``warp_dx``
+measures its window from the grid on the device; ``warp_dx_scatter`` sorts
+the output pixels by their taps), and both need Hg = H and Wg = W, the
+generator's only use.
 """
 
 from __future__ import annotations
@@ -38,8 +40,11 @@ _SIGNATURES = {
     "warp_fwd": ("lcgan_warp_fwd", [_PTR] * 3 + [_INT] * 8 + [_PTR]),
     "warp_dgrid": ("lcgan_warp_dgrid", [_PTR] * 4 + [_INT] * 8 + [_PTR]),
     "warp_dx": ("lcgan_warp_dx", [_PTR] * 4 + [_INT] * 6 + [_PTR]),
+    "warp_dx_scatter": ("lcgan_warp_dx_scatter", [_PTR] * 3 + [ctypes.c_longlong, _PTR] + [_INT] * 6 + [_PTR]),
 }
 _DX_SCRATCH = 128  # fp32 partial maxima of warp_dx's window pass: kDispBlocks in csrc/warp_dx.cu
+_DX_SPLIT_C = 128  # dx kernel by channel count, as _vjp_bwd splits it (lcgan_tpu/ops/warp_pallas.py)
+_SCAN_TILE = 1024  # counts scanned per block: kScanTile in csrc/warp_dx_scatter.cu
 _fns: dict = {}
 
 
@@ -138,6 +143,13 @@ def warp_dgrid(x: torch.Tensor, grid: torch.Tensor, g: torch.Tensor) -> torch.Te
     return dgrid
 
 
+def _check_dx_args(name: str, grid: torch.Tensor, g: torch.Tensor) -> None:
+    _check_grid(name, grid, g)
+    _check_features(name, g, "cotangent")
+    if tuple(grid.shape[1:3]) != tuple(g.shape[2:]):
+        raise ValueError(f"{name} needs the features' map size on the grid: grid {tuple(grid.shape)}, g {tuple(g.shape)}")
+
+
 def warp_dx(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA feature-gradient kernels (the window pass and the
     gather). Counts its launches in ``warp_dx.launches``.
@@ -147,11 +159,8 @@ def warp_dx(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     (B, C, H, W) channels_last in g's dtype: the features had the grid's
     map size (the generator's only use; other sizes raise).
     """
-    _check_grid("warp_dx", grid, g)
-    _check_features("warp_dx", g, "cotangent")
+    _check_dx_args("warp_dx", grid, g)
     b, c, h, w = g.shape
-    if tuple(grid.shape[1:3]) != (h, w):
-        raise ValueError(f"warp_dx needs the features' map size on the grid: grid {tuple(grid.shape)}, g {tuple(g.shape)}")
     dx = torch.empty_like(g, memory_format=torch.channels_last)
     if g.numel() == 0:
         return dx
@@ -165,9 +174,43 @@ def warp_dx(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dx
 
 
+def _dx_scatter_scratch_ints(b: int, h: int, w: int) -> int:
+    """int32 workspace of ``warp_dx_scatter``: each pixel's bucket and the
+    sorted list (B·H·W each), the counts and the offsets (one per bucket and
+    one more), and one total per scanned tile."""
+    ncount = b * (h + 3) * (w + 3) + 1
+    return 2 * b * h * w + 2 * ncount + -(-ncount // _SCAN_TILE)
+
+
+def warp_dx_scatter(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA feature-gradient kernels for narrow maps (the bucket
+    sort of the output pixels by their taps, and the gather). Counts its
+    launches in ``warp_dx_scatter.launches``.
+
+    The arguments and the result are ``warp_dx``'s: grid (B, H, W, 2) fp32,
+    contiguous; g (B, C, H, W) channels_last, fp32 or bf16; returns dx in
+    g's dtype. Any C works; the backward sends C < 128 here.
+    """
+    _check_dx_args("warp_dx_scatter", grid, g)
+    b, c, h, w = g.shape
+    dx = torch.empty_like(g, memory_format=torch.channels_last)
+    if g.numel() == 0:
+        return dx
+    fn = _fn("warp_dx_scatter")
+    n_ints = _dx_scatter_scratch_ints(b, h, w)
+    scratch = torch.empty(n_ints, dtype=torch.int32, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = fn(grid.data_ptr(), g.data_ptr(), scratch.data_ptr(), n_ints, dx.data_ptr(), _DTYPES[g.dtype],
+                _vec(g, dx), b, c, h, w, _stream(g))
+    _raise_on(rc, "warp_dx_scatter")
+    warp_dx_scatter.launches += 1
+    return dx
+
+
 warp_fwd.launches = 0
 warp_dgrid.launches = 0
 warp_dx.launches = 0
+warp_dx_scatter.launches = 0
 
 
 class BicubicWarp(torch.autograd.Function):
@@ -190,7 +233,9 @@ class BicubicWarp(torch.autograd.Function):
             dx, dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
             return (dx if need_x else None), (dgrid.to(grid.dtype) if need_grid else None)
         g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
-        dx = warp_dx(grid, g) if need_x else None
+        dx = None
+        if need_x:
+            dx = (warp_dx if g.shape[1] >= _DX_SPLIT_C else warp_dx_scatter)(grid, g)
         dgrid = warp_dgrid(x, grid, g) if need_grid else None
         return dx, dgrid
 

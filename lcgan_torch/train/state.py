@@ -4,6 +4,8 @@ port of ``lcgan_tpu.train.state``.
 The JAX package keeps everything in one immutable pytree; here the state is
 a container of modules and tensors that the train iteration updates in
 place (parameters, buffers, Adam moments), which keeps one copy of each.
+``TrainState.state_dict`` / ``load_state_dict`` carry all of it, the noise
+generator's state included, through a checkpoint (``utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -53,6 +55,22 @@ class AdamNoMu:
         live = [i for i in range(len(params)) if not (frozen and frozen[i])]
         torch._foreach_add_([params[i] for i in live], [updates[i] for i in live])
 
+    def state_dict(self) -> dict:
+        return {"v": {k: t.detach().to("cpu", copy=True) for k, t in self.v.items()}, "count": self.count}
+
+    def load_state_dict(self, sd: dict) -> None:
+        if sd["v"].keys() != self.v.keys():
+            raise KeyError(f"Adam v leaves differ: {sorted(sd['v'].keys() ^ self.v.keys())}")
+        with torch.no_grad():
+            for k, t in sd["v"].items():
+                self.v[k].copy_(t)
+        self.count = int(sd["count"])
+
+
+def _module_state(module: nn.Module) -> dict:
+    """Parameters and buffers, copied to the CPU."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -63,6 +81,29 @@ class TrainState:
     g_opt: AdamNoMu
     d_opt: AdamNoMu
     rng: torch.Generator  # the iterations' noise, on the run's device
+
+    def state_dict(self) -> dict:
+        """Everything a bit-exact resume needs, as CPU tensors and ints."""
+        return {
+            "step": self.step,
+            "generator": _module_state(self.generator),
+            "discriminator": _module_state(self.discriminator),
+            "ema": _module_state(self.ema),
+            "g_opt": self.g_opt.state_dict(),
+            "d_opt": self.d_opt.state_dict(),
+            "rng": self.rng.get_state(),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore ``state_dict()``'s output in place (values copied into the
+        existing tensors, which keep their device and memory format)."""
+        self.generator.load_state_dict(sd["generator"])
+        self.discriminator.load_state_dict(sd["discriminator"])
+        self.ema.load_state_dict(sd["ema"])
+        self.g_opt.load_state_dict(sd["g_opt"])
+        self.d_opt.load_state_dict(sd["d_opt"])
+        self.rng.set_state(sd["rng"])
+        self.step = int(sd["step"])
 
 
 def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> Tuple[Generator, Discriminator]:

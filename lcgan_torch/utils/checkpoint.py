@@ -1,49 +1,56 @@
-"""The port's generator checkpoint.
+"""The port's full-state checkpoint and the run directory's resume sidecar
+(worker.py:219-253, loader.py:36-42,75-80).
 
-One ``torch.save`` file under ``<model_name>/<save_dir>/``: ``generator.pt``
-(``generator_best.pt`` for the best-FID snapshot) holding
-``{g_params, g_stats, ema_params, ema_stats}``, each a state_dict-keyed dict
-of CPU tensors (parameters, and buffers: the w-avg stats). The full train
-state (D, Adam, RNG, step) comes with the training slice.
+One ``torch.save`` file under ``<model_name>/<save_dir>/``: ``state.pt``
+(``state_best.pt`` for the best-FID snapshot) holding the whole
+``TrainState`` as ``TrainState.state_dict`` gives it: G, D and EMA
+parameters and buffers, both Adam ``v`` trees and counts, ``step`` and the
+noise generator's state. Restoring it into a freshly built state resumes
+bit for bit. ``<model_name>/epoch.txt`` holds the last saved epoch.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional
 
 import torch
-from torch import nn
 
 from lcgan_torch.config import Config
 
 
-def checkpoint_path(cfg: Config, best: bool = False) -> str:
-    name = "generator_best.pt" if best else "generator.pt"
-    return os.path.join(cfg.run_dirs()["model"], name)
+def state_path(cfg: Config, best: bool = False) -> str:
+    return os.path.join(cfg.run_dirs()["model"], "state_best.pt" if best else "state.pt")
 
 
-def split_state(module: nn.Module) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """(params, stats) of a module as CPU tensors."""
-    params = {k: v.detach().cpu() for k, v in module.named_parameters()}
-    stats = {k: v.detach().cpu() for k, v in module.named_buffers()}
-    return params, stats
-
-
-def save_generator(path: str, generator: nn.Module, ema: nn.Module):
+def save_state(path: str, state) -> None:
+    """Write ``state`` (a ``TrainState``) to ``path`` atomically."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    g_params, g_stats = split_state(generator)
-    ema_params, ema_stats = split_state(ema)
     tmp = path + ".tmp"
-    torch.save(
-        {"g_params": g_params, "g_stats": g_stats, "ema_params": ema_params, "ema_stats": ema_stats},
-        tmp,
-    )
+    torch.save(state.state_dict(), tmp)
     os.replace(tmp, path)
+
+
+def load_state(path: str, state) -> None:
+    """Restore the checkpoint at ``path`` into ``state`` (built from the
+    same config), in place."""
+    state.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
 
 
 def load_generator_state(path: str, use_ema: bool = True) -> Dict[str, torch.Tensor]:
     """The state_dict of the EMA (or raw) generator stored at ``path``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    prefix = "ema" if use_ema else "g"
-    return {**ckpt[f"{prefix}_params"], **ckpt[f"{prefix}_stats"]}
+    return ckpt["ema" if use_ema else "generator"]
+
+
+def read_epoch_file(model_name: str) -> Optional[int]:
+    p = os.path.join(model_name, "epoch.txt")
+    if os.path.exists(p):
+        with open(p) as f:
+            return int(f.read().strip())
+    return None
+
+
+def write_epoch_file(model_name: str, epoch: int) -> None:
+    with open(os.path.join(model_name, "epoch.txt"), "w") as f:
+        f.write(str(epoch))

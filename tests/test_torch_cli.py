@@ -1,5 +1,5 @@
-"""The port's generation phase end to end on the CPU, its device rule, and
-its independence from JAX."""
+"""The port's generation phase end to end on the CPU (from the train phase's
+full-state checkpoint), its device rule, and its independence from JAX."""
 
 import os
 import subprocess
@@ -12,8 +12,8 @@ from PIL import Image
 
 from lcgan_torch import cli
 from lcgan_torch.config import Config
-from lcgan_torch.models.generator import build_generator
-from lcgan_torch.utils.checkpoint import checkpoint_path, save_generator
+from lcgan_torch.train.steps import Trainer
+from lcgan_torch.utils.checkpoint import save_state, state_path
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(img_resolution=32, batch_size=2, geo_noise_dim=8, app_noise_dim=8, geo_latent_dim=8,
@@ -21,12 +21,11 @@ TINY = dict(img_resolution=32, batch_size=2, geo_noise_dim=8, app_noise_dim=8, g
 
 
 def write_run(run_dir: str, **overrides) -> Config:
-    """A run directory with args.txt and a seeded generator checkpoint."""
+    """A run directory with args.txt and a seeded full-state checkpoint."""
     cfg = Config(model_name=run_dir, **{**TINY, **overrides})
     cfg.make_run_dirs()
     cfg.dump(os.path.join(run_dir, "args.txt"))
-    g = build_generator(cfg, torch.Generator().manual_seed(0))
-    save_generator(checkpoint_path(cfg), g, g)
+    save_state(state_path(cfg), Trainer(Config(**{**TINY, **overrides}, device="cpu")).init_state())
     return cfg
 
 
@@ -68,7 +67,7 @@ def test_missing_checkpoint_raises(tmp_path):
         cli.main(["--phase", "fake_image_generation", "--model_name", run, "--device", "cpu"])
 
 
-@pytest.mark.parametrize("phase", ["train", "fid_eval", "video_generation"])
+@pytest.mark.parametrize("phase", ["fid_eval", "video_generation"])
 def test_other_phases_wait_for_their_slice(phase, tmp_path):
     with pytest.raises(NotImplementedError, match="later slice"):
         cli.main(["--phase", phase, "--model_name", str(tmp_path / "run"), "--device", "cpu"])

@@ -1,5 +1,6 @@
-"""The CUDA warp kernels on the card (forward, grid gradient, feature
-gradient), against their plain versions.
+"""The CUDA warp kernels on the card (forward, grid gradient, the two
+feature-gradient kernels), against their plain versions, and the
+deterministic-mode train iteration.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so on a GPU host without JAX it runs with
@@ -149,13 +150,14 @@ def test_autograd_function_on_card_matches_cpu(s, dev):
     x, grid = case(2, 16, 12, 20, s, torch.float32, dev)
     g = cotangent(x)
     grads = []
+    kernels = (warp.warp_fwd, warp.warp_dgrid, warp.warp_dx_scatter)  # C = 16: the narrow-map dx
     for device in (dev, torch.device("cpu")):
         xd = x.detach().to(device).requires_grad_()
         gd = grid.detach().to(device).requires_grad_()
-        launches = (warp.warp_fwd.launches, warp.warp_dgrid.launches, warp.warp_dx.launches)
+        launches = tuple(k.launches for k in kernels) + (warp.warp_dx.launches,)
         warp.grid_sample_bicubic(xd, gd).backward(g.to(device).contiguous())  # not channels_last
-        ran = (warp.warp_fwd.launches, warp.warp_dgrid.launches, warp.warp_dx.launches)
-        assert ran == tuple(n + (device.type == "cuda") for n in launches)
+        ran = tuple(k.launches for k in kernels) + (warp.warp_dx.launches,)
+        assert ran == tuple(n + (device.type == "cuda") for n in launches[:3]) + launches[3:]
         grads.append((xd.grad.cpu(), gd.grad.cpu()))
     (dx, dgrid), (ref_dx, ref_dgrid) = grads
     assert (dx - ref_dx).abs().max().item() <= fp32_tol(ref_dx)
@@ -195,3 +197,102 @@ def test_generator_on_card_matches_cpu(dev):
         out = card(z.to(dev), z.to(dev), w_psi=0.7)
     assert warp.warp_fwd.launches == before + card.num_blocks
     torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+# (b, c, h, w) of the narrow-map dx kernel: C < 128 with vector loads, and the scalar path
+SCATTER_SHAPES = [(2, 64, 64, 64), (1, 32, 128, 96), (2, 16, 24, 40), (2, 5, 12, 20)]
+# the tanh bound, the trained magnitude, and a flow far beyond the bound
+SCATTER_FLOWS = [0.1, 0.03, 0.6]
+
+
+def assert_dx_matches_plain(dx, ref_dx):
+    if dx.dtype == torch.float32:
+        assert (dx - ref_dx).abs().max().item() <= fp32_tol(ref_dx)
+    else:  # both round one fp32 sum to bf16: at most one ulp of the output scale apart
+        ulp = 2.0 ** (torch.floor(torch.log2(ref_dx.float().abs().max())).item() - 7)
+        assert (dx.float() - ref_dx.float()).abs().max().item() <= ulp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", SCATTER_FLOWS)
+@pytest.mark.parametrize("shape", SCATTER_SHAPES)
+def test_dx_scatter_matches_plain(shape, s, dtype, dev):
+    x, grid = case(*shape, s, dtype, dev)
+    g = cotangent(x)
+    before = warp.warp_dx_scatter.launches
+    dx = warp.warp_dx_scatter(grid, g)
+    torch.cuda.synchronize()
+    assert warp.warp_dx_scatter.launches == before + 1
+    assert dx.is_contiguous(memory_format=torch.channels_last) and dx.dtype == dtype
+    assert_dx_matches_plain(dx, grid_sample_bicubic_plain_backward(x, grid, g)[0])
+
+
+def test_dx_scatter_gathered_grid(dev):
+    """Every output pixel samples one spot: one bucket holds the whole map
+    (the heap-sorted path)."""
+    x, grid = case(2, 16, 32, 32, 0.0, torch.float32, dev)
+    grid = torch.full_like(grid, 0.01)
+    g = cotangent(x)
+    dx = warp.warp_dx_scatter(grid, g)
+    assert_dx_matches_plain(dx, grid_sample_bicubic_plain_backward(x, grid, g)[0])
+    assert torch.equal(dx, warp.warp_dx_scatter(grid, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dx_scatter_is_deterministic(dtype, dev):
+    x, grid = case(2, 64, 64, 64, 0.1, dtype, dev)
+    g = cotangent(x)
+    assert torch.equal(warp.warp_dx_scatter(grid, g), warp.warp_dx_scatter(grid, g))
+
+
+def test_dx_scatter_far_grid_is_zero_and_refuses(dev):
+    x, grid = case(1, 8, 16, 16, 0.1, torch.float32, dev)
+    g = cotangent(x)
+    assert torch.count_nonzero(warp.warp_dx_scatter(torch.full_like(grid, 1e30), g)) == 0
+    with pytest.raises(ValueError, match="map size"):
+        warp.warp_dx_scatter(grid[:, :4].contiguous(), g)
+    with pytest.raises(ValueError, match="channels_last"):
+        warp.warp_dx_scatter(grid, g.contiguous())
+
+
+@pytest.mark.parametrize("c,kernel", [(64, "warp_dx_scatter"), (32, "warp_dx_scatter"), (128, "warp_dx")])
+def test_autograd_function_sends_dx_by_channels(c, kernel, dev):
+    """C < 128 runs the narrow-map dx kernel, C >= 128 the other, as the
+    JAX package's _vjp_bwd splits them; both agree with the CPU path."""
+    x, grid = case(1, c, 16, 24, 0.1, torch.float32, dev)
+    g = cotangent(x)
+    names = ("warp_fwd", "warp_dgrid", "warp_dx", "warp_dx_scatter")
+    before = {n: getattr(warp, n).launches for n in names}
+    xd = x.detach().requires_grad_()
+    warp.grid_sample_bicubic(xd, grid.detach().requires_grad_()).backward(g)
+    ran = {n: getattr(warp, n).launches - before[n] for n in names}
+    assert ran == {"warp_fwd": 1, "warp_dgrid": 1, "warp_dx": int(kernel == "warp_dx"),
+                   "warp_dx_scatter": int(kernel == "warp_dx_scatter")}
+    assert_dx_matches_plain(xd.grad, grid_sample_bicubic_plain_backward(x, grid, g)[0])
+
+
+@pytest.mark.parametrize("epoch", [0, 1])
+def test_train_iteration_in_deterministic_mode(epoch, dev):
+    """The train phase runs under torch.use_deterministic_algorithms(True):
+    no op of an even or an odd + R1 iteration may refuse it, and two runs
+    from one state give the same bits."""
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.loop import deterministic_algorithms
+    from lcgan_torch.train.steps import Trainer
+
+    cfg = Config(model_name="unused", img_resolution=32, batch_size=4, geo_noise_dim=8, app_noise_dim=8,
+                 geo_latent_dim=8, app_latent_dim=16, geo_projection_dim=8, app_projection_dim=8, base_nf=8,
+                 max_nf=64, mbstd_group_size=2, device="cuda")
+    g = torch.Generator().manual_seed(0)
+    batch = {k: (torch.rand((4, 3, 32, 32), generator=g) * 2 - 1).to(dev)
+             for k in ("image", "geometry_change", "appearance_change")}
+    results = []
+    with deterministic_algorithms():
+        for _ in range(2):
+            trainer = Trainer(cfg)
+            state, g_loss, d_loss = trainer.train_iteration(trainer.init_state(), batch, epoch)
+            results.append((g_loss, d_loss, state.generator.state_dict(), state.discriminator.state_dict()))
+    (g0, d0, gen0, dis0), (g1, d1, gen1, dis1) = results
+    assert torch.isfinite(g0) and torch.isfinite(d0)
+    assert torch.equal(g0, g1) and torch.equal(d0, d1)
+    assert all(torch.equal(v, gen1[k]) for k, v in gen0.items()) and all(torch.equal(v, dis1[k]) for k, v in dis0.items())

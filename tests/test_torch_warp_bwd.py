@@ -2,17 +2,18 @@
 against four oracles, on the CPU:
 
   1. ``jax.vjp`` of ``lcgan_tpu.ops.grid_sample.grid_sample_bicubic_banded``;
-  2. the Pallas backward kernels themselves, K2 (``_dgrid_kernel``) and K3
-     (``_dx_gather_kernel``), in interpret mode, at W >= 128 and C >= 128 so
-     that ``_vjp_bwd`` takes neither the small-map kernels nor the scatter dx;
+  2. the Pallas backward kernels themselves, in interpret mode, at W >= 128
+     so that ``_vjp_bwd`` does not take the small-map kernels: K2
+     (``_dgrid_kernel``) with K3 (``_dx_gather_kernel``) at C >= 128, and
+     with K4 (``_dx_scatter_kernel`` and ``_overlap_add``) at C < 128;
   3. ``torch.autograd`` through ``grid_sample_bicubic_plain``;
   4. ``torch.autograd`` through ``F.grid_sample(mode='bicubic',
      padding_mode='zeros', align_corners=False)``.
 
 Plus the autograd Function's wiring on the CPU. Flows are ``identity +
 U(-1, 1) · s`` at s = 0.1 (the tanh bound) and 0.03 (the trained
-magnitude). The CUDA kernels (``csrc/warp_dgrid.cu``, ``csrc/warp_dx.cu``)
-are held against this plain backward on the card, in
+magnitude). The CUDA kernels (``csrc/warp_dgrid.cu``, ``csrc/warp_dx.cu``,
+``csrc/warp_dx_scatter.cu``) are held against this plain backward on the card, in
 tests/test_torch_cuda.py and chip_smoke.py.
 
 dgrid is a sum over channels of products scaled by W/2 (up to ~1e3 here),
@@ -96,6 +97,21 @@ def test_plain_backward_matches_pallas_bwd_kernels(s):
 
 
 @pytest.mark.parametrize("s", FLOWS)
+def test_plain_backward_matches_pallas_scatter_dx(s):
+    shape = (1, 16, 128, 32)
+    b, h, w, c = shape
+    m = j_gs.max_warp_displacement(max(h, w), s)
+    assert not _use_small(h, w, c, m, 4) and c < 128  # K2 and K4 (scatter dx + overlap-add)
+    x, grid, g = case(shape, s)
+    _, vjp = jax.vjp(lambda a, b: grid_sample_bicubic_pallas(a, b, m, True), jnp.asarray(x), jnp.asarray(grid))
+    dx, dgrid = vjp(jnp.asarray(g))
+    got = plain_bwd(x, grid, g)
+    # the tolerances of tests/test_warp_pallas.py:63-64 (banded matmul sums)
+    np.testing.assert_allclose(got[0], np.asarray(dx), atol=1e-3)
+    np.testing.assert_allclose(got[1], np.asarray(dgrid), atol=2e-2)
+
+
+@pytest.mark.parametrize("s", FLOWS)
 @pytest.mark.parametrize("shape", [(2, 16, 16, 8), (1, 8, 32, 5), (2, 12, 20, 3)])
 def test_plain_backward_matches_autograd_of_plain(shape, s):
     x, grid, g = case(shape, s)
@@ -120,9 +136,10 @@ def test_plain_backward_matches_torch_grid_sample(shape, s):
 def test_autograd_function_on_cpu_matches_plain(s):
     """The Function's CPU path: plain forward, plain backward, no kernel launch."""
     x, grid, g = case((2, 16, 16, 8), s)
-    before = (t_warp.warp_fwd.launches, t_warp.warp_dgrid.launches, t_warp.warp_dx.launches)
+    kernels = (t_warp.warp_fwd, t_warp.warp_dgrid, t_warp.warp_dx, t_warp.warp_dx_scatter)
+    before = [k.launches for k in kernels]
     got = autograd_bwd(t_warp.grid_sample_bicubic, x, grid, g)
-    assert (t_warp.warp_fwd.launches, t_warp.warp_dgrid.launches, t_warp.warp_dx.launches) == before
+    assert [k.launches for k in kernels] == before
     want = plain_bwd(x, grid, g)
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
     assert_grads(got, autograd_bwd(t_gs.grid_sample_bicubic_plain, x, grid, g), 1e-6, 1e-6)
@@ -156,3 +173,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         t_warp.warp_dgrid(xt, torch.from_numpy(grid), gt)
     with pytest.raises(ValueError, match="CUDA"):
         t_warp.warp_dx(torch.from_numpy(grid), gt)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_warp.warp_dx_scatter(torch.from_numpy(grid), gt)
