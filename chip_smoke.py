@@ -4,7 +4,8 @@
 
 1. Builds every CUDA kernel of the generation and training paths from
    lcgan_torch/ops/csrc with nvcc for sm_90a, one nvcc per source, in
-   parallel: warp_fwd, warp_dgrid, warp_dx, warp_dx_scatter.
+   parallel: warp_fwd, warp_dgrid, warp_dx, warp_dx_scatter, and the
+   small-map route's warp_fwd_small, warp_dgrid_small, warp_dx_small.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, in fp32 (max abs error <= 1e-5, scaled by the
    gradient's magnitude where it exceeds 1: the gradients sum up to C·16
@@ -13,9 +14,12 @@
    (0.1) and at the trained magnitude (0.03); warp_dx_scatter (the dx of
    the narrow maps, C < 128) also at a flow far beyond the bound (0.6). The
    error against torch's own op (F.grid_sample,
-   aten.grid_sampler_2d_backward) is printed beside it. The three gradient
-   kernels, called twice on the same inputs, must give bitwise-equal
-   outputs.
+   aten.grid_sampler_2d_backward) is printed beside it. The three small-map
+   kernels are held the same way at the 8²-64² maps of the 256² recipe
+   (B=8, C=512) and one tiny odd-C map (the scalar path), fp32 and bf16, at
+   flows 0.1, 0.03 and 0.6, and warp_dx_small on a grid that gathers every
+   pixel onto one spot. The gradient kernels, called twice on the same
+   inputs, must give bitwise-equal outputs.
 3. Times each kernel, its plain version and the one PyTorch call that computes
    the same function (F.grid_sample and aten.grid_sampler_2d_backward, the
    yardsticks; the port never calls them) with CUDA events at the six warp
@@ -25,6 +29,9 @@
    warp_dx at the narrow maps of the 512² and 1024² recipes (512²c64 B=8,
    1024²c32 B=4; fp32 and bf16; flows 0.1 and 0.03), beside the bound: the
    larger of bytes over the card's memory rate and flops over its fp32 rate.
+   The small-map kernels likewise at the four small maps (bf16 and fp32,
+   s = 0.1), each beside the general kernel at the same call (warp_fwd,
+   warp_dgrid, warp_dx) and with the wrapper's host time per call.
 4. Drives the generation path: `python -m lcgan_torch.cli --phase
    fake_image_generation` on a seeded flagship 256² generator (base_nf 128,
    max_nf 512, latents 64/512, bf16, batch 8), three batches. The kernel
@@ -58,7 +65,22 @@
    peak memory), an even step with and without deterministic algorithms,
    an even-step profile, bit-exact resume at 512² in a fresh process, and
    the training monitor once at full width (num_explore 2).
-7. Prints the kernels as one JSON line (launches from step 6), the card's
+7. Drives the small-map route, the main path of this slice: `python -m
+   lcgan_torch.cli --phase train` at the flagship 256² recipe with
+   `--warp_pallas_min_res 8` (the flags of step 5, batch 8, freezeD_layer 5)
+   on a seeded synthetic folder of 256² JPEGs, epochs 0-3, a resumed call,
+   then fake_image_generation from its checkpoint, three batches. Counts set
+   to 0 just before each part and read just after: over epochs 0-3 the four
+   8²-64² blocks (C = 512) launch warp_fwd_small 4·12 = 48, warp_dgrid_small
+   and warp_dx_small 4·8 = 32, the 128² and 256² blocks warp_fwd 24,
+   warp_dgrid and warp_dx 16, warp_dx_scatter 0; generation 12 small and 6
+   general. args.txt must hold the knob. Then, per layer, windows of the
+   8-iteration mix at 256² on one synthetic batch with warp_pallas_min_res 8
+   and 128 in turns (images/s each), and an even-step profile of the small
+   route with the warp kernels' share. Steps 4-6 run with the default
+   (128) and must launch no small-map kernel.
+8. Prints the kernels as one JSON line (launches from step 6, and from
+   step 7 for the small-map kernels), the whole run's wall time, the card's
    name and power limit, and last the ok line. Exits nonzero, printing no
    result, on any failure and when no GPU is present.
 """
@@ -97,7 +119,16 @@ MIX_WINDOWS = 5  # timed passes over the training schedule's 8-iteration mix
 SCATTER_SHAPES = [(8, 64, 512), (4, 32, 1024)]
 SCATTER_FLOWS = [0.1, 0.03, 0.6]  # 0.6: far beyond the tanh bound
 MIX_WINDOWS_512 = 3
-KERNELS = ("warp_fwd", "warp_dgrid", "warp_dx", "warp_dx_scatter")
+GENERAL_KERNELS = ("warp_fwd", "warp_dgrid", "warp_dx", "warp_dx_scatter")
+SMALL_KERNELS = ("warp_fwd_small", "warp_dgrid_small", "warp_dx_small")
+KERNELS = GENERAL_KERNELS + SMALL_KERNELS
+# the general kernel each small-map kernel replaces on its maps
+GENERAL_OF = dict(warp_fwd_small="warp_fwd", warp_dgrid_small="warp_dgrid", warp_dx_small="warp_dx")
+# (B, C, H) of the small-map warps of one 256² batch (blocks 0-3), and a
+# tiny odd-C map that takes the kernels' scalar path
+SMALL_PATH_WARPS = MAIN_PATH_WARPS[:4]
+SMALL_CHECK_SHAPES = SMALL_PATH_WARPS + [(2, 5, 12)]
+MIX_WINDOWS_ROUTES = 2  # timed windows of the 256² mix per warp route, in turns
 
 failures: list[str] = []
 
@@ -408,6 +439,8 @@ def profile_forward(fn, iters: int = 5, top: int = 12, what: str = "forward") ->
     for i, (key, ms, count) in enumerate(ranked):
         if i < top or "warp_" in key:
             print(f"  {ms:8.3f} ms {ms / busy:6.1%} x{count:<3d} {key[:110]}")
+    warp_ms = sum(ms for key, ms, _ in rows if re.search(r"\bwarp_\w*kernel", key))
+    print(f"  the port's warp kernels: {warp_ms:.3f} ms = {warp_ms / busy:.1%} of the device time", flush=True)
 
 
 def run_generation_path() -> int:
@@ -439,18 +472,20 @@ def run_generation_path() -> int:
         del state
         print(f"generation path: flagship 256² generator, {sum(p.numel() for p in g.parameters()) / 1e6:.2f} M params", flush=True)
 
-        warp.warp_fwd.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         cli.main(["--phase", "fake_image_generation", "--model_name", run, "--num_fakes", str(num_fakes)])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = warp.warp_fwd.launches
+        small = {k: getattr(warp, k).launches for k in SMALL_KERNELS}
 
         n_img = num_fakes * cfg.batch_size
         print(f"generation path: {n_img} images in {seconds:.3f} s = {n_img / seconds:.2f} images/s "
               "(checkpoint load, first-call autotuning and JPEG writes included)", flush=True)
         expect = cfg.num_blocks * num_fakes  # one warp per synthesis block
         check(launches == expect, f"warp_fwd launches on the generation path: {launches} (expect {expect})")
+        check(not any(small.values()), f"small-map launches on the generation path (warp_pallas_min_res 128): {small}")
         jpgs = [os.path.join(run, "fakes", f"{i:04d}_images.jpg") for i in range(num_fakes)]
         shapes = [np.asarray(Image.open(p)).shape if os.path.exists(p) else None for p in jpgs]
         res = cfg.img_resolution
@@ -545,6 +580,7 @@ def run_training_path() -> None:
     expect = dict(warp_fwd=cfg.num_blocks * (4 + 2 + 4 + 2), warp_dgrid=cfg.num_blocks * (3 + 1 + 3 + 1))
     expect["warp_dx"] = expect["warp_dgrid"]
     expect["warp_dx_scatter"] = 0  # every block of the 256² recipe has C >= 128
+    expect.update(dict.fromkeys(SMALL_KERNELS, 0))  # the default warp_pallas_min_res, 128
     for name, n in launches.items():
         check(n == expect[name], f"{name} launches on the training path: {n} (expect {expect[name]})")
     check(all(math.isfinite(v) for pair in losses for v in pair), "training losses finite")
@@ -719,6 +755,150 @@ def time_dx_scatter(bw: float, flops: float) -> dict:
     return main_row
 
 
+def check_small_kernels() -> dict:
+    """The three small-map kernels vs the plain versions at the small maps of
+    the 256² recipe and a tiny odd-C map, flows up to far beyond the tanh
+    bound, a gathered grid, and the gradient kernels' determinism; returns
+    each kernel's largest fp32 error."""
+    import torch
+
+    from lcgan_torch.ops import warp
+    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain, grid_sample_bicubic_plain_backward
+
+    worst = dict.fromkeys(SMALL_KERNELS, 0.0)
+    for b, c, h in SMALL_CHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in SCATTER_FLOWS:
+                x, grid = warp_inputs(b, c, h, s, dtype)
+                g = cotangent_like(x)
+                got = dict(warp_fwd_small=warp.warp_fwd_small(x, grid), warp_dgrid_small=warp.warp_dgrid_small(x, grid, g),
+                           warp_dx_small=warp.warp_dx_small(grid, g))
+                torch.cuda.synchronize()
+                ref_dx, ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
+                lib_dx, lib_dgrid = library_backward(x, grid, g, [True, True])
+                ref = dict(warp_fwd_small=grid_sample_bicubic_plain(x, grid), warp_dgrid_small=ref_dgrid, warp_dx_small=ref_dx)
+                lib = dict(warp_fwd_small=library_grid_sample(x, grid), warp_dgrid_small=lib_dgrid, warp_dx_small=lib_dx)
+                for name in SMALL_KERNELS:
+                    out, want = got[name].float(), ref[name].float()
+                    err = (out - want).abs().max().item()
+                    lib_err = (out - lib[name].float()).abs().max().item()
+                    tag = f"{name} {b}x{c}x{h}x{h} {str(dtype)[6:]} s={s}"
+                    if dtype == torch.float32 or name == "warp_dgrid_small":  # dgrid is fp32 from either
+                        # the forward sums 16 products per value: 1e-5 flat, as for warp_fwd
+                        tol = FP32_TOL if name == "warp_fwd_small" else fp32_tol(want)
+                        if dtype == torch.float32:
+                            worst[name] = max(worst[name], err)
+                        check(err <= tol, f"{tag}: max_abs_err {err:.3g} (tol {tol:.3g}); vs torch's op {lib_err:.3g}")
+                    else:
+                        ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+                        check(err <= ulp, f"{tag}: max_abs_err {err:.3g} (tol 1 bf16 ulp = {ulp:.3g}); "
+                                          f"vs torch's op {lib_err:.3g}")
+                del x, grid, g, got, ref, lib, ref_dx, ref_dgrid, lib_dx, lib_dgrid
+    for b, c, h in (SMALL_PATH_WARPS[0], SMALL_PATH_WARPS[-1]):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, grid = warp_inputs(b, c, h, 0.1, dtype, seed=2)
+            g = cotangent_like(x, seed=3)
+            same_dgrid = torch.equal(warp.warp_dgrid_small(x, grid, g), warp.warp_dgrid_small(x, grid, g))
+            same_dx = torch.equal(warp.warp_dx_small(grid, g), warp.warp_dx_small(grid, g))
+            check(same_dgrid and same_dx, f"determinism {b}x{c}x{h}x{h} {str(dtype)[6:]}: warp_dgrid_small bitwise "
+                                          f"equal {same_dgrid}, warp_dx_small bitwise equal {same_dx}")
+            del x, grid, g
+    b, c, h = SMALL_PATH_WARPS[-1]
+    x, _ = warp_inputs(b, c, h, 0.0, torch.float32)
+    grid = torch.full((b, h, h, 2), 0.01, device="cuda")  # every pixel samples one spot: one bucket holds the map
+    g = cotangent_like(x)
+    dx = warp.warp_dx_small(grid, g)
+    want = grid_sample_bicubic_plain_backward(x, grid, g)[0]
+    err = (dx - want).abs().max().item()
+    same = torch.equal(dx, warp.warp_dx_small(grid, g))
+    check(err <= fp32_tol(want) and same, f"warp_dx_small {b}x{c}x{h}x{h} fp32, every pixel on one spot: "
+                                          f"max_abs_err {err:.3g} (tol {fp32_tol(want):.3g}), bitwise repeatable {same}")
+    return worst
+
+
+def time_small_kernels(bw: float, flops: float) -> dict:
+    """K5-K7 at the four small maps of one 256² batch of 8 (s = 0.1), in bf16
+    (the train phase's dtype) and fp32, each beside the general kernel at the
+    same call, the plain version, torch's op on fp32 features (the library
+    call), the bound, and its wrapper's host time per call. Returns each
+    kernel's bf16 row summed over the four maps, with the general kernel's
+    time beside it."""
+    import torch
+
+    from lcgan_torch.ops import warp
+    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain, grid_sample_bicubic_plain_backward
+
+    total = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, general_ms=0.0) for n in SMALL_KERNELS}
+    bound_by = {n: set() for n in SMALL_KERNELS}
+    for b, c, h in SMALL_PATH_WARPS:
+        x32, grid = warp_inputs(b, c, h, 0.1, torch.float32)
+        g32 = cotangent_like(x32)
+        library = dict(warp_fwd_small=lambda: library_grid_sample(x32, grid),
+                       warp_dgrid_small=lambda: library_backward(x32, grid, g32, [False, True]),
+                       warp_dx_small=lambda: library_backward(x32, grid, g32, [True, False]))
+        lib_ms = {n: min(cuda_ms(f, 5), cuda_ms(f, 5)) for n, f in library.items()}
+        n_out = b * h * h
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype).contiguous(memory_format=torch.channels_last)
+            g = g32.to(dtype).contiguous(memory_format=torch.channels_last)
+            es = x.element_size()
+            groups = -(-c // warp._small_channels(b, c, h, h, x, 1))
+            plain = dict(warp_fwd_small=lambda: grid_sample_bicubic_plain(x, grid),
+                         warp_dgrid_small=lambda: grid_sample_bicubic_plain_backward(x, grid, g))
+            plain_ms = {n: cuda_ms(f, 3) for n, f in plain.items()}
+            plain_ms["warp_dx_small"] = plain_ms["warp_dgrid_small"]  # the plain backward computes both
+            calls = dict(
+                warp_fwd_small=(lambda: warp.warp_fwd_small(x, grid), lambda: warp.warp_fwd(x, grid)),
+                warp_dgrid_small=(lambda: warp.warp_dgrid_small(x, grid, g), lambda: warp.warp_dgrid(x, grid, g)),
+                warp_dx_small=(lambda: warp.warp_dx_small(grid, g), lambda: warp.warp_dx(grid, g)),
+            )
+            work = dict(  # (bytes: each input read once, each output written once; flops)
+                warp_fwd_small=(2 * n_out * c * es + n_out * 8, 32 * c * n_out),  # x, grid; out
+                warp_dgrid_small=(2 * n_out * c * es + 2 * n_out * 8, 64 * c * n_out),  # x, g, grid; dgrid
+                warp_dx_small=(2 * n_out * c * es + n_out * 8, 32 * c * n_out),  # g, grid; dx
+            )
+            for name in SMALL_KERNELS:
+                kernel, general = calls[name]
+                # turns K, G, G, K; the lower of each pair
+                k1 = cuda_ms(kernel)
+                g1 = cuda_ms(general)
+                g2 = cuda_ms(general)
+                k2 = cuda_ms(kernel)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    kernel()
+                host_us = (time.perf_counter() - t0) / 50 * 1e6  # the wrapper's enqueue cost
+                torch.cuda.synchronize()
+                nbytes, nflops = work[name]
+                bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
+                row = dict(ms=min(k1, k2), plain_ms=plain_ms[name], library_ms=lib_ms[name],
+                           bound_ms=max(bytes_ms, flops_ms), general_ms=min(g1, g2))
+                extra = ""
+                if name == "warp_dgrid_small" and groups > 1:
+                    # the design's own traffic: each group's fp32 partials written, then read
+                    extra = f", {(nbytes + 2 * groups * n_out * 8) / bw * 1e3:.4f} ms with its {groups} groups' partials"
+                print(f"time {name} {b}x{c}x{h}x{h} {str(dtype)[6:]} s=0.1: kernel {row['ms']:.4f} ms, "
+                      f"{GENERAL_OF[name]} {row['general_ms']:.4f} ms ({row['general_ms'] / row['ms']:.2f}x), "
+                      f"plain {row['plain_ms']:.4f} ms, torch's op (fp32) {row['library_ms']:.4f} ms, "
+                      f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB{extra}), kernel at "
+                      f"{row['bound_ms'] / row['ms']:.1%} of bound; wrapper host cost {host_us:.1f} us per call",
+                      flush=True)
+                if dtype == torch.bfloat16:
+                    bound_by[name].add("bytes" if bytes_ms >= flops_ms else "operations")
+                    for k in row:
+                        total[name][k] += row[k]
+            del x, g, calls, plain
+        del x32, g32, grid, library
+    for name in SMALL_KERNELS:
+        t = total[name]
+        t["bound_by"] = "bytes" if bound_by[name] == {"bytes"} else "operations"
+        print(f"time {name} per 256² batch of 8 (the four 8²-64² warps, bf16): kernel {t['ms']:.4f} ms, "
+              f"{GENERAL_OF[name]} {t['general_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"torch's op (fp32) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms", flush=True)
+    return total
+
+
 def synthetic_jpeg_folder(root: str, n: int, size: int) -> None:
     """``n`` seeded size² JPEGs under root/train/x: smooth colour fields
     with grain, as photos compress."""
@@ -786,6 +966,7 @@ def run_train_phase(data: str, run: str) -> dict:
     print(f"train phase: epochs 0-3 through the CLI in {seconds:.3f} s (build, first calls, data and one save included)",
           flush=True)
     expect = dict(warp_fwd=7 * 12, warp_dgrid=7 * 8, warp_dx=6 * 8, warp_dx_scatter=1 * 8)
+    expect.update(dict.fromkeys(SMALL_KERNELS, 0))  # the default warp_pallas_min_res, 128
     for name, n in launches.items():
         check(n == expect[name], f"{name} launches on the 512² train phase, epochs 0-3: {n} (expect {expect[name]})")
     lines = log_epochs(run)
@@ -975,9 +1156,133 @@ def check_resume_512(run: str) -> None:
     torch.cuda.empty_cache()
 
 
+TRAIN_256_SMALL = ["--img_resolution", "256", "--batch_size", "8", "--freezeD_layer", "5", "--num_data_workers", "4",
+                   "--warp_pallas_min_res", "8"]
+
+
+def reset_launches() -> None:
+    from lcgan_torch.ops import warp
+
+    for k in KERNELS:
+        getattr(warp, k).launches = 0
+
+
+def read_launches() -> dict:
+    from lcgan_torch.ops import warp
+
+    return {k: getattr(warp, k).launches for k in KERNELS}
+
+
+def run_train_phase_small(data: str, run: str) -> dict:
+    """The small-map route through the CLI: the flagship 256² recipe's train
+    phase with --warp_pallas_min_res 8, epochs 0-3, then a resumed call for
+    4-5, then generation from its checkpoint (three batches). Returns the
+    kernels' launches over epochs 0-3."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from lcgan_torch.config import Config
+
+    base = ["--phase", "train", "--dataset_path", data, "--model_name", run, *TRAIN_256_SMALL,
+            "--save_interval", "3", "--print_interval", "1", "--show_interval", "1000"]
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_cli(base + ["--epoch", "3"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"small route: 256² train phase with --warp_pallas_min_res 8, epochs 0-3 through the CLI in {seconds:.3f} s "
+          "(first calls, data and one save included)", flush=True)
+    # per block over epochs 0-3: 12 forward and 8 backward warps (see step 5)
+    expect = dict(warp_fwd_small=4 * 12, warp_dgrid_small=4 * 8, warp_dx_small=4 * 8,  # 8²-64², C = 512
+                  warp_fwd=2 * 12, warp_dgrid=2 * 8, warp_dx=2 * 8, warp_dx_scatter=0)  # 128²·256, 256²·128
+    for name, n in launches.items():
+        check(n == expect[name], f"{name} launches on the 256² train phase with --warp_pallas_min_res 8, "
+                                 f"epochs 0-3: {n} (expect {expect[name]})")
+    cfg = Config.load(os.path.join(run, "args.txt"))
+    check(cfg.warp_pallas_min_res == 8 and cfg.warp_impl == "auto",
+          f"args.txt holds warp_pallas_min_res: {cfg.warp_pallas_min_res}, warp_impl: {cfg.warp_impl}")
+    lines = log_epochs(run)
+    check(lines is not None and [e for e, _, _ in lines] == [0, 1, 2, 3]
+          and all(math.isfinite(v) for _, g, d in lines for v in (g, d)) and "restart training from" not in out,
+          f"small route log.txt, epochs 0-3, finite losses: {lines}")
+
+    t0 = time.perf_counter()
+    out = run_cli(base + ["--epoch", "5"])
+    lines = log_epochs(run) or []
+    print(f"small route: resumed call in {time.perf_counter() - t0:.3f} s", flush=True)
+    check("restart training from: 4" in out and [e for e, _, _ in lines] == [0, 1, 2, 3, 4, 5]
+          and all(math.isfinite(v) for _, g, d in lines for v in (g, d)),
+          f"small route: second call resumed from epoch.txt + 1: log epochs {[e for e, _, _ in lines]}")
+
+    num_fakes = 3
+    reset_launches()
+    t0 = time.perf_counter()
+    run_cli(["--phase", "fake_image_generation", "--model_name", run, "--num_fakes", str(num_fakes)])
+    torch.cuda.synchronize()
+    gen = read_launches()
+    print(f"small route: fake_image_generation, {num_fakes} batches in {time.perf_counter() - t0:.3f} s", flush=True)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(warp_fwd_small=4 * num_fakes, warp_fwd=2 * num_fakes)
+    check(gen == want, f"launches of fake_image_generation from the small route's checkpoint: "
+                       f"warp_fwd_small {gen['warp_fwd_small']} (expect 12), warp_fwd {gen['warp_fwd']} (expect 6), "
+                       f"no other {dict((k, v) for k, v in gen.items() if k not in ('warp_fwd_small', 'warp_fwd'))}")
+    shapes = []
+    for i in range(num_fakes):
+        path = os.path.join(run, "fakes", f"{i:04d}_images.jpg")
+        shapes.append(np.asarray(Image.open(path)).shape if os.path.exists(path) else None)
+    check(all(s == (256 * 8, 256, 3) for s in shapes), f"small route fakes JPEGs: {shapes}")
+    return launches
+
+
+def compare_routes_256() -> None:
+    """Per layer: windows of the 8-iteration mix at 256² on one synthetic
+    batch, warp_pallas_min_res 8 (the small-map route) and 128 (the default)
+    in turns in one process (S, G, G, S), images/s each; then an even-step
+    profile of the small route."""
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.steps import Trainer
+
+    runs = {}
+    for min_res in (8, 128):
+        cfg = Config(model_name="chip_smoke_routes", img_resolution=256, batch_size=8, freezeD_start=10**9,
+                     warp_pallas_min_res=min_res, device="cuda")
+        trainer = Trainer(cfg)
+        state = trainer.init_state()
+        batch = synthetic_batch(cfg, trainer.device)
+        for epoch in range(8):  # first calls
+            state, _, _ = trainer.train_iteration(state, batch, epoch)
+        runs[min_res] = [trainer, state, batch, []]
+    for min_res in (8, 128, 128, 8) * (MIX_WINDOWS_ROUTES // 2):
+        trainer, state, batch, windows = runs[min_res]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for epoch in range(8):
+            state, _, _ = trainer.train_iteration(state, batch, epoch)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+        runs[min_res][1] = state
+    for min_res, (_, _, _, windows) in runs.items():
+        n_img = len(windows) * 8 * 8
+        print(f"train throughput at 256², 8-iteration mix, warp_pallas_min_res {min_res} "
+              f"({'small-map' if min_res == 8 else 'general'} route for the 8²-64² blocks), {len(windows)} windows "
+              f"in turns: {n_img} images in {sum(windows):.3f} s = {n_img / sum(windows):.2f} images/s "
+              f"(windows {', '.join(f'{w * 1e3:.1f}' for w in windows)} ms)", flush=True)
+    trainer, state, batch, _ = runs[8]
+    noise = trainer.draw_noise(state, 8)
+    profile_forward(lambda: trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False),
+                    iters=2, top=12, what="even train step at 256², warp_pallas_min_res 8")
+    del runs, trainer, state, batch
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -994,24 +1299,34 @@ def main() -> int:
     bw, flops = card_rates(name)
 
     build_kernels()
-    worst = dict(warp_fwd=check_warp_kernel(), **check_backward_kernels(), warp_dx_scatter=check_dx_scatter())
+    worst = dict(warp_fwd=check_warp_kernel(), **check_backward_kernels(), warp_dx_scatter=check_dx_scatter(),
+                 **check_small_kernels())
     times = dict(warp_fwd=time_warp_kernel(bw, flops), **time_backward_kernels(bw, flops),
-                 warp_dx_scatter=time_dx_scatter(bw, flops))
+                 warp_dx_scatter=time_dx_scatter(bw, flops), **time_small_kernels(bw, flops))
     run_generation_path()
     run_training_path()
     check_training_card_vs_cpu()
     with tempfile.TemporaryDirectory(prefix="lcgan_smoke_512_") as tmp:
         data = os.path.join(tmp, "data")
         synthetic_jpeg_folder(data, 32, 512)
-        launches = run_train_phase(data, os.path.join(tmp, "run"))  # the main path: counts for the JSON line
+        launches = run_train_phase(data, os.path.join(tmp, "run"))  # PR 3's path: the general kernels' counts
         run_train_512(data, os.path.join(tmp, "mix"))
         check_resume_512(os.path.join(tmp, "resume"))
+    with tempfile.TemporaryDirectory(prefix="lcgan_smoke_256_") as tmp:
+        data = os.path.join(tmp, "data")
+        synthetic_jpeg_folder(data, 32, 256)
+        small = run_train_phase_small(data, os.path.join(tmp, "run"))  # this slice's path: the small-map counts
+        launches.update({k: small[k] for k in SMALL_KERNELS})
+        compare_routes_256()
+    print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s", flush=True)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
     replaces = dict(warp_fwd="lcgan_tpu/ops/warp_pallas.py:442", warp_dgrid="lcgan_tpu/ops/warp_pallas.py:835",
-                    warp_dx="lcgan_tpu/ops/warp_pallas.py:901", warp_dx_scatter="lcgan_tpu/ops/warp_pallas.py:988")
+                    warp_dx="lcgan_tpu/ops/warp_pallas.py:901", warp_dx_scatter="lcgan_tpu/ops/warp_pallas.py:988",
+                    warp_fwd_small="lcgan_tpu/ops/warp_pallas.py:589", warp_dgrid_small="lcgan_tpu/ops/warp_pallas.py:629",
+                    warp_dx_small="lcgan_tpu/ops/warp_pallas.py:679")
     kernels = [dict(
         name=name,
         route="cuda",

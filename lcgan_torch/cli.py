@@ -122,10 +122,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JAX package only: jax.distributed initialization policy")
     p.add_argument("--warp_impl", type=str, default="auto",
                    choices=["auto", "pallas", "banded", "none"],
-                   help="JAX package only: bicubic-warp backend (the port always runs "
-                        "its CUDA kernel on the card)")
+                   help="bicubic-warp route: auto/pallas as the JAX package routes its Pallas "
+                        "kernels (on the card, maps of at most 64² that its rule sends to the "
+                        "small-map kernels run the small-map CUDA kernels); banded and none keep "
+                        "the general CUDA kernels in the port")
     p.add_argument("--warp_pallas_min_res", type=int, default=128,
-                   help="JAX package only: smallest map routed to the Pallas kernel")
+                   help="smallest map that auto routes to the Pallas kernels (the port: to the "
+                        "small-map CUDA kernels where they apply, e.g. 8 for the 8²-64² blocks)")
     p.add_argument("--warp_adaptive_band", default=True, action=argparse.BooleanOptionalAction,
                    help="JAX package only: flow-adaptive band of the Pallas warp")
     p.add_argument("--profile_dir", type=str, default="", help="JAX package only: trace output dir")

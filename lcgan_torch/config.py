@@ -3,10 +3,13 @@
 The same fields, defaults and ``args.txt`` JSON as ``lcgan_tpu.config`` (the
 33 reference flags plus the JAX package's extensions), so a run directory
 written by either package reloads in the other. The one new field is
-``device``. The JAX backend knobs (``warp_impl``, ``warp_pallas_min_res``,
-``warp_adaptive_band``, ``distributed``, ``profile_dir``, the remat
-switches) are kept only so that ``args.txt`` round-trips: the port's warp
-always runs its CUDA kernel on the card and its plain version on the CPU.
+``device``. ``warp_impl`` and ``warp_pallas_min_res`` pick each synthesis
+block's warp route on the card as they pick the JAX package's (the
+small-map kernels where its Pallas entry would take them, else the general
+kernels; ``ops.warp.small_route``); on the CPU the warp is the plain
+version either way. The other JAX backend knobs (``warp_adaptive_band``,
+``distributed``, ``profile_dir``, the remat switches) are kept only so that
+``args.txt`` round-trips.
 """
 
 from __future__ import annotations

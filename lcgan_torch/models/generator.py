@@ -10,8 +10,10 @@ Each SynthesisBlock (custom_layers.py:114-166) runs four branches: skip
 (1×1 conv ×√.5 → nearest 2× → box filter), flow field (mod-conv up2 → box
 filter → tanh), main (mod-conv up2 → box filter → lrelu×√2 → mod-conv →
 lrelu → +skip), then the bicubic feature warp by coordinates + flow·scale.
-Every warp goes through ``ops.warp.grid_sample_bicubic``: the CUDA kernel on
-the card at every map size, the plain version on the CPU.
+Every warp goes through ``ops.warp.grid_sample_bicubic``: the plain version
+on the CPU; on the card the general CUDA kernels, or the small-map ones
+where the JAX generator would take its small-map Pallas kernels
+(``warp_impl``, ``warp_pallas_min_res``; ``ops.warp.small_route``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from lcgan_torch.ops.filters import box_filter_3x3, leaky_relu, nearest_upsample
 from lcgan_torch.ops.grid_sample import identity_like_coordinates
 from lcgan_torch.ops.mapping import MappingNetwork
 from lcgan_torch.ops.modulated import SynthesisLayer
-from lcgan_torch.ops.warp import grid_sample_bicubic
+from lcgan_torch.ops.warp import grid_sample_bicubic, small_route
 
 SQRT2 = math.sqrt(2.0)
 SQRT_HALF = math.sqrt(0.5)
@@ -48,10 +50,14 @@ class SynthesisBlock(nn.Module):
         use_noise: bool = False,  # reaches the two main convs, never the flow layer
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
+        warp_impl: str = "auto",
+        warp_pallas_min_res: int = 128,
     ):
         super().__init__()
         self.max_flow_scale = max_flow_scale
         self.dtype = dtype
+        # the warp's route on the card, static per block (as the JAX block's)
+        self.small_warp = small_route(warp_impl, warp_pallas_min_res, resolution, resolution, features, max_flow_scale)
         kw = dict(dtype=dtype, generator=generator)
         self.skip_layer = EqualizedConv2d(in_features, features, 1, no_bias=True, **kw)
         self.flow_layer = SynthesisLayer(in_features, 2, g_latent_dim, up=2, **kw)
@@ -80,7 +86,7 @@ class SynthesisBlock(nn.Module):
         b, _, h, w = y.shape
         coords = identity_like_coordinates(b, h, w, device=y.device)
         correspondence = (coords + flow.permute(0, 2, 3, 1) * self.max_flow_scale).contiguous()
-        warped = grid_sample_bicubic(y.contiguous(memory_format=torch.channels_last), correspondence)
+        warped = grid_sample_bicubic(y.contiguous(memory_format=torch.channels_last), correspondence, self.small_warp)
         return warped.to(self.dtype)
 
 
@@ -131,6 +137,8 @@ class Generator(nn.Module):
         use_noise: bool = False,  # the reference disables it everywhere (cnn.py:83,87)
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
+        warp_impl: str = "auto",
+        warp_pallas_min_res: int = 128,
     ):
         super().__init__()
         self.w_avg_beta = w_avg_beta
@@ -153,6 +161,7 @@ class Generator(nn.Module):
             block = SynthesisBlock(
                 in_features, features, geo_latent_dim, app_latent_dim, max_flow_scale,
                 resolution=8 * 2**i, use_noise=use_noise, dtype=dtype, generator=generator,
+                warp_impl=warp_impl, warp_pallas_min_res=warp_pallas_min_res,
             )
             self.add_module(f"block_{i}", block)
             in_features = features
@@ -203,4 +212,6 @@ def build_generator(cfg: Config, generator: Optional[torch.Generator] = None) ->
         img_ch=cfg.img_ch,
         dtype=cfg.dtype,
         generator=generator,
+        warp_impl=cfg.warp_impl,
+        warp_pallas_min_res=cfg.warp_pallas_min_res,
     )

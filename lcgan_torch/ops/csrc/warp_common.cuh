@@ -1,7 +1,7 @@
-// Shared pieces of the bicubic warp kernels (warp_fwd.cu, warp_dgrid.cu,
-// warp_dx.cu): the cubic convolution weights and their derivatives, the
-// coordinate unnormalization, and 16-byte vector loads and stores of NHWC
-// channel runs.
+// Shared pieces of the bicubic warp kernels (csrc/warp_*.cu): the cubic
+// convolution weights and their derivatives, the coordinate
+// unnormalization, 16-byte vector loads and stores of NHWC channel runs, and
+// the sort of a bucket's pixel list.
 //
 // Every kernel computes a pixel's taps and weights exactly as the plain
 // PyTorch version does (lcgan_torch/ops/grid_sample.py): the coordinate is
@@ -56,6 +56,51 @@ __device__ __forceinline__ void cubic_weight_derivatives(float t, float (&w)[4])
   w[1] = dcubic_near(t);
   w[2] = -dcubic_near(1.f - t);
   w[3] = -dcubic_far(2.f - t);
+}
+
+// Tap weight i (0..3) of fractional offset t: cubic_weights(t)[i].
+__device__ __forceinline__ float cubic_tap(float t, int i) {
+  return i == 0 ? cubic_far(t + 1.f) : i == 1 ? cubic_near(t) : i == 2 ? cubic_near(1.f - t) : cubic_far(2.f - t);
+}
+
+__device__ inline void sift_down(int* a, int root, int n) {
+  while (true) {
+    int child = 2 * root + 1;
+    if (child >= n) return;
+    if (child + 1 < n && a[child + 1] > a[child]) ++child;
+    if (a[root] >= a[child]) return;
+    const int t = a[root];
+    a[root] = a[child];
+    a[child] = t;
+    root = child;
+  }
+}
+
+// Sorts a[0, n) ascending, in one thread: insertion sort for short runs
+// (nearly every bucket of a warp's pixel lists), heap sort for long ones (a
+// grid that gathers many pixels onto one spot).
+__device__ inline void sort_ascending(int* a, int n) {
+  constexpr int kInsertionMax = 32;
+  if (n < 2) return;
+  if (n <= kInsertionMax) {
+    for (int i = 1; i < n; ++i) {
+      const int x = a[i];
+      int j = i - 1;
+      while (j >= 0 && a[j] > x) {
+        a[j + 1] = a[j];
+        --j;
+      }
+      a[j + 1] = x;
+    }
+    return;
+  }
+  for (int i = n / 2 - 1; i >= 0; --i) sift_down(a, i, n);
+  for (int end = n - 1; end > 0; --end) {
+    const int t = a[0];
+    a[0] = a[end];
+    a[end] = t;
+    sift_down(a, 0, end);
+  }
 }
 
 template <typename T, int VEC>

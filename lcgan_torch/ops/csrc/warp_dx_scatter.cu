@@ -53,12 +53,6 @@ using namespace lcgan;
 constexpr int kThreads = 256;
 constexpr int kScanItems = 4;
 constexpr int kScanTile = kThreads * kScanItems;  // counts scanned by one block
-constexpr int kInsertionMax = 32;                 // longer buckets are heap-sorted
-
-// Tap weight i (0..3) of fractional offset t: cubic_weights(t)[i].
-__device__ __forceinline__ float cubic_tap(float t, int i) {
-  return i == 0 ? cubic_far(t + 1.f) : i == 1 ? cubic_near(t) : i == 2 ? cubic_near(1.f - t) : cubic_far(2.f - t);
-}
 
 // A bucket's key: (b, by + 3, bx + 3) row-major over (B, H + 3, W + 3). Every
 // base with a tap on the map lies in [-3, size - 1].
@@ -150,49 +144,13 @@ warp_dxs_place_kernel(const int* __restrict__ key, const int* __restrict__ offse
   list[offset[k] + atomicSub(&count[k], 1) - 1] = pix;
 }
 
-__device__ void sift_down(int* a, int root, int n) {
-  while (true) {
-    int child = 2 * root + 1;
-    if (child >= n) return;
-    if (child + 1 < n && a[child + 1] > a[child]) ++child;
-    if (a[root] >= a[child]) return;
-    const int t = a[root];
-    a[root] = a[child];
-    a[child] = t;
-    root = child;
-  }
-}
-
-// Sorts each bucket's range ascending: insertion sort for the short ranges
-// (nearly all), heap sort for long ones (a grid that gathers many pixels
-// onto one spot).
+// Sorts each bucket's range ascending (sort_ascending, warp_common.cuh).
 __global__ void __launch_bounds__(kThreads)
 warp_dxs_sort_kernel(const int* __restrict__ offset, int* __restrict__ list, int nkeys) {
   const int k = blockIdx.x * kThreads + threadIdx.x;
   if (k >= nkeys) return;
   const int lo = offset[k];
-  const int n = offset[k + 1] - lo;
-  if (n < 2) return;
-  int* a = list + lo;
-  if (n <= kInsertionMax) {
-    for (int i = 1; i < n; ++i) {
-      const int x = a[i];
-      int j = i - 1;
-      while (j >= 0 && a[j] > x) {
-        a[j + 1] = a[j];
-        --j;
-      }
-      a[j + 1] = x;
-    }
-    return;
-  }
-  for (int i = n / 2 - 1; i >= 0; --i) sift_down(a, i, n);
-  for (int end = n - 1; end > 0; --end) {
-    const int t = a[0];
-    a[0] = a[end];
-    a[end] = t;
-    sift_down(a, 0, end);
-  }
+  sort_ascending(list + lo, offset[k + 1] - lo);
 }
 
 template <typename T, int VEC>

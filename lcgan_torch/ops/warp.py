@@ -1,24 +1,29 @@
 """The synthesis-block warp: bicubic ``grid_sample`` with zeros padding, and
 its gradient.
 
-``grid_sample_bicubic(x, grid)`` takes the contract of ``F.grid_sample``:
-x (B, C, H, W), grid (B, Hg, Wg, 2) in (x, y) order, mode='bicubic',
-padding_mode='zeros', align_corners=False. It is the autograd Function
-``BicubicWarp`` (the port of the JAX package's ``custom_vjp``
-``_grid_sample_bicubic_pallas_vjp``):
+``grid_sample_bicubic(x, grid, small)`` takes the contract of
+``F.grid_sample``: x (B, C, H, W), grid (B, Hg, Wg, 2) in (x, y) order,
+mode='bicubic', padding_mode='zeros', align_corners=False. It is the
+autograd Function ``BicubicWarp`` (the port of the JAX package's
+``custom_vjp`` ``_grid_sample_bicubic_pallas_vjp``):
 
   * on CPU tensors its forward and backward are the plain versions
-    (``ops.grid_sample``);
-  * on CUDA tensors the forward launches ``csrc/warp_fwd.cu`` and the
-    backward ``csrc/warp_dgrid.cu`` (the grid's gradient) and, for the
+    (``ops.grid_sample``), whatever the route;
+  * on CUDA tensors the general route launches ``csrc/warp_fwd.cu`` forward
+    and ``csrc/warp_dgrid.cu`` (the grid's gradient) and, for the
     features', ``csrc/warp_dx.cu`` at C >= 128 or ``csrc/warp_dx_scatter.cu``
-    at C < 128 (the split of the JAX package's ``_vjp_bwd``), or raises.
-    Nothing falls back to the plain versions.
+    at C < 128 (the split of the JAX package's ``_vjp_bwd``); the small-map
+    route (``small=True``, maps of at most 64²) launches
+    ``csrc/warp_fwd_small.cu``, ``csrc/warp_dgrid_small.cu`` and
+    ``csrc/warp_dx_small.cu``, which hold a channel group's whole map in
+    shared memory. Or it raises: nothing falls back to the plain versions.
 
-Both dx kernels are exact for any grid, as the forward is (``warp_dx``
-measures its window from the grid on the device; ``warp_dx_scatter`` sorts
-the output pixels by their taps), and both need Hg = H and Wg = W, the
-generator's only use.
+Every kernel is exact for any grid, as the forward is, and the dx kernels
+need Hg = H and Wg = W, the generator's only use.
+
+``small_route`` is the JAX generator's choice of route, copied
+(``use_small`` is the rule of ``lcgan_tpu.ops.warp_pallas._use_small``),
+so that a run takes the same route in both packages.
 """
 
 from __future__ import annotations
@@ -29,7 +34,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from lcgan_torch.ops import _build
-from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain, grid_sample_bicubic_plain_backward
+from lcgan_torch.ops.grid_sample import (
+    grid_sample_bicubic_plain,
+    grid_sample_bicubic_plain_backward,
+    max_warp_displacement,
+)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -41,11 +50,83 @@ _SIGNATURES = {
     "warp_dgrid": ("lcgan_warp_dgrid", [_PTR] * 4 + [_INT] * 8 + [_PTR]),
     "warp_dx": ("lcgan_warp_dx", [_PTR] * 4 + [_INT] * 6 + [_PTR]),
     "warp_dx_scatter": ("lcgan_warp_dx_scatter", [_PTR] * 3 + [ctypes.c_longlong, _PTR] + [_INT] * 6 + [_PTR]),
+    "warp_fwd_small": ("lcgan_warp_fwd_small", [_PTR] * 3 + [_INT] * 9 + [_PTR]),
+    "warp_dgrid_small": ("lcgan_warp_dgrid_small", [_PTR] * 5 + [_INT] * 9 + [_PTR]),
+    "warp_dx_small": ("lcgan_warp_dx_small", [_PTR] * 3 + [_INT] * 7 + [_PTR]),
 }
 _DX_SCRATCH = 128  # fp32 partial maxima of warp_dx's window pass: kDispBlocks in csrc/warp_dx.cu
 _DX_SPLIT_C = 128  # dx kernel by channel count, as _vjp_bwd splits it (lcgan_tpu/ops/warp_pallas.py)
 _SCAN_TILE = 1024  # counts scanned per block: kScanTile in csrc/warp_dx_scatter.cu
+_SMALL_MAX = 64  # the small-map kernels take maps of at most 64²
+_SMALL_SMEM = 229_376  # shared memory a small-map block may take: kMaxSmem in csrc/warp_small.cuh
+_SMALL_MIN_BLOCKS = 264  # about two blocks per SM of an H100 (132 SMs)
 _fns: dict = {}
+
+
+# ----------------------------------------------------------------------------
+# the route: the JAX generator's rule (lcgan_tpu/models/generator.py and
+# lcgan_tpu/ops/warp_pallas._small_geom/_small_groups/_use_small), copied.
+# The TPU's VMEM budget decides only which maps take the small route, so
+# that both packages route a run alike; the CUDA kernels pick their own
+# channel groups (_small_channels).
+# ----------------------------------------------------------------------------
+
+_UNROLL = 2  # packs per band-loop body (warp_pallas._unroll)
+
+
+def _npack(c: int) -> int:
+    """Band rows packed per matmul (warp_pallas._npack, without its
+    environment override)."""
+    raw = max(1, min(8, 256 // max(c, 1)))
+    return 1 << (raw.bit_length() - 1)
+
+
+def _round_up(n: int, mult: int) -> int:
+    return -(-n // mult) * mult
+
+
+def _small_geom(h: int, w: int, c: int, m: int):
+    """(rows per lane tile, padded width, padded height) of the JAX
+    package's packed small-map layout."""
+    nr = min(max(128 // w, 1), h)
+    npack = _npack(c)
+    s_dma = _round_up(w + 2 * m, 128)
+    pb = _round_up((nr + 2 * m + 2 * npack - 2) // npack, _UNROLL)
+    hp = ((h - nr) // npack + pb) * npack
+    return nr, s_dma, hp
+
+
+def _small_groups(h: int, w: int, c: int, m: int):
+    """The JAX package's channel-group count for its small-map kernels, or
+    None if no split fits its 6 MB budget."""
+    groups = 1
+    while True:
+        cg = c // groups
+        _, s_dma, hp = _small_geom(h, w, cg, m)
+        if hp * max(cg, 8) * s_dma * 4 <= 6 * 1024 * 1024:
+            return groups
+        if cg % 2 or groups * 2 > c:
+            return None
+        groups *= 2
+
+
+def use_small(h: int, w: int, c: int, m: int) -> bool:
+    """Whether the JAX package's Pallas entry sends an (h, w, c) map with
+    displacement bound m to its small-map kernels."""
+    nr = _small_geom(h, w, c, m)[0]
+    if w > 64 or 128 % w or h % nr:
+        return False
+    return _small_groups(h, w, c, m) is not None
+
+
+def small_route(warp_impl: str, warp_pallas_min_res: int, h: int, w: int, c: int, max_flow_scale: float) -> bool:
+    """The synthesis block's route: small exactly where the JAX generator
+    would call its Pallas entry (``warp_impl`` "pallas", or "auto" at maps of
+    ``warp_pallas_min_res`` and up, where the card stands in for the TPU) and
+    that entry would take its small-map kernels. "banded" and "none" keep the
+    general route."""
+    pallas = warp_impl == "pallas" or (warp_impl == "auto" and h >= warp_pallas_min_res)
+    return pallas and use_small(h, w, c, max_warp_displacement(h, max_flow_scale))
 
 
 def _fn(name: str) -> ctypes._CFuncPtr:
@@ -207,22 +288,141 @@ def warp_dx_scatter(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dx
 
 
+def _check_small_map(name: str, t: torch.Tensor) -> None:
+    if t.shape[2] > _SMALL_MAX or t.shape[3] > _SMALL_MAX:
+        raise ValueError(f"{name} takes maps of at most {_SMALL_MAX}², got {tuple(t.shape[2:])}")
+
+
+def _small_channels(b: int, c: int, h: int, w: int, t: torch.Tensor, vec: int, extra_smem: int = 0) -> int:
+    """Channels per block of a small-map kernel (one block per batch element
+    and channel group): C, halved while the group's h·w map with
+    ``extra_smem`` bytes of the kernel's own overflows a block's shared
+    memory or the grid has fewer than _SMALL_MIN_BLOCKS blocks; a multiple of
+    the 16-byte vector's channels on the vector path."""
+    step = 16 // t.element_size() if vec else 1
+
+    def smem(cg):
+        return h * w * cg * t.element_size() + extra_smem
+
+    cg = c
+    while cg > step and (smem(cg) > _SMALL_SMEM or b * -(-c // cg) < _SMALL_MIN_BLOCKS):
+        cg = max(step, cg // 2 // step * step)
+    if smem(cg) > _SMALL_SMEM:
+        raise ValueError(f"a {h}x{w} map does not fit a block's shared memory")
+    return cg
+
+
+def _dx_small_extra_smem(h: int, w: int) -> int:
+    """Shared memory of ``warp_dx_small`` besides the cotangent's map: each
+    pixel's fractional offsets, bucket and list slot, the bucket ends, and
+    16 bytes of alignment (csrc/warp_dx_small.cu)."""
+    return h * w * 16 + ((h + 3) * (w + 3) + 1) * 4 + 16
+
+
+def warp_fwd_small(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA small-map forward-warp kernel. Counts its launches in
+    ``warp_fwd_small.launches``.
+
+    The arguments and the result are ``warp_fwd``'s, with x's map at most
+    64² (the grid's any size).
+    """
+    _check_grid("warp_fwd_small", grid, x)
+    _check_features("warp_fwd_small", x, "features")
+    _check_small_map("warp_fwd_small", x)
+    b, c, h, w = x.shape
+    hg, wg = grid.shape[1], grid.shape[2]
+    out = torch.empty((b, c, hg, wg), dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    fn = _fn("warp_fwd_small")
+    vec = _vec(x, out)
+    cg = _small_channels(b, c, h, w, x, vec)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), grid.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], vec, b, c, h, w, hg, wg, cg,
+                _stream(x))
+    _raise_on(rc, "warp_fwd_small")
+    warp_fwd_small.launches += 1
+    return out
+
+
+def warp_dgrid_small(x: torch.Tensor, grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA small-map grid-gradient kernels (the per-group partial
+    sums and their fixed-order sum). Counts its launches in
+    ``warp_dgrid_small.launches``.
+
+    The arguments and the result are ``warp_dgrid``'s, with x's map at most
+    64².
+    """
+    _check_grid("warp_dgrid_small", grid, x)
+    _check_features("warp_dgrid_small", x, "features")
+    _check_features("warp_dgrid_small", g, "cotangent")
+    _check_small_map("warp_dgrid_small", x)
+    b, c, h, w = x.shape
+    hg, wg = grid.shape[1], grid.shape[2]
+    if g.dtype != x.dtype or g.device != x.device or tuple(g.shape) != (b, c, hg, wg):
+        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} does not match x {tuple(x.shape)} {x.dtype} "
+                         f"and grid {tuple(grid.shape)}")
+    dgrid = torch.empty((b, hg, wg, 2), dtype=torch.float32, device=x.device)
+    if g.numel() == 0:
+        return dgrid.zero_()
+    fn = _fn("warp_dgrid_small")
+    vec = _vec(x, g)
+    cg = _small_channels(b, c, h, w, x, vec)
+    groups = -(-c // cg)
+    partial = torch.empty(groups * dgrid.numel() if groups > 1 else 0, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), grid.data_ptr(), g.data_ptr(), partial.data_ptr(), dgrid.data_ptr(), _DTYPES[x.dtype],
+                vec, b, c, h, w, hg, wg, cg, _stream(x))
+    _raise_on(rc, "warp_dgrid_small")
+    warp_dgrid_small.launches += 1
+    return dgrid
+
+
+def warp_dx_small(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA small-map feature-gradient kernel (the bucket sort of
+    the output pixels and the gather, in one block's shared memory). Counts
+    its launches in ``warp_dx_small.launches``.
+
+    The arguments and the result are ``warp_dx``'s, with the map at most
+    64².
+    """
+    _check_dx_args("warp_dx_small", grid, g)
+    _check_small_map("warp_dx_small", g)
+    b, c, h, w = g.shape
+    dx = torch.empty_like(g, memory_format=torch.channels_last)
+    if g.numel() == 0:
+        return dx
+    fn = _fn("warp_dx_small")
+    vec = _vec(g, dx)
+    cg = _small_channels(b, c, h, w, g, vec, _dx_small_extra_smem(h, w))
+    with torch.cuda.device(g.device):
+        rc = fn(grid.data_ptr(), g.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype], vec, b, c, h, w, cg, _stream(g))
+    _raise_on(rc, "warp_dx_small")
+    warp_dx_small.launches += 1
+    return dx
+
+
 warp_fwd.launches = 0
 warp_dgrid.launches = 0
 warp_dx.launches = 0
 warp_dx_scatter.launches = 0
+warp_fwd_small.launches = 0
+warp_dgrid_small.launches = 0
+warp_dx_small.launches = 0
 
 
 class BicubicWarp(torch.autograd.Function):
     """Bicubic warp with its hand-written gradient. Saves only (x, grid), as
-    the JAX package's ``_vjp_fwd`` does."""
+    the JAX package's ``_vjp_fwd`` does; ``small`` picks the route on the
+    card."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, grid: torch.Tensor, small: bool) -> torch.Tensor:
         ctx.save_for_backward(x, grid)
+        ctx.small = small
         if x.device.type == "cpu" and grid.device.type == "cpu":
             return grid_sample_bicubic_plain(x, grid)
-        return warp_fwd(x, grid)
+        return (warp_fwd_small if small else warp_fwd)(x, grid)
 
     @staticmethod
     @once_differentiable
@@ -231,15 +431,19 @@ class BicubicWarp(torch.autograd.Function):
         need_x, need_grid = ctx.needs_input_grad[:2]
         if x.device.type == "cpu" and grid.device.type == "cpu":
             dx, dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
-            return (dx if need_x else None), (dgrid.to(grid.dtype) if need_grid else None)
+            return (dx if need_x else None), (dgrid.to(grid.dtype) if need_grid else None), None
         g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
-        dx = None
-        if need_x:
-            dx = (warp_dx if g.shape[1] >= _DX_SPLIT_C else warp_dx_scatter)(grid, g)
-        dgrid = warp_dgrid(x, grid, g) if need_grid else None
-        return dx, dgrid
+        if ctx.small:
+            dx_kernel, dgrid_kernel = warp_dx_small, warp_dgrid_small
+        else:
+            dx_kernel = warp_dx if g.shape[1] >= _DX_SPLIT_C else warp_dx_scatter
+            dgrid_kernel = warp_dgrid
+        dx = dx_kernel(grid, g) if need_x else None
+        dgrid = dgrid_kernel(x, grid, g) if need_grid else None
+        return dx, dgrid, None
 
 
-def grid_sample_bicubic(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Bicubic warp: plain PyTorch on the CPU, the CUDA kernels on the card."""
-    return BicubicWarp.apply(x, grid)
+def grid_sample_bicubic(x: torch.Tensor, grid: torch.Tensor, small: bool = False) -> torch.Tensor:
+    """Bicubic warp: plain PyTorch on the CPU, the CUDA kernels on the card
+    (the small-map route if ``small``)."""
+    return BicubicWarp.apply(x, grid, small)

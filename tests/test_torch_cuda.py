@@ -1,6 +1,6 @@
 """The CUDA warp kernels on the card (forward, grid gradient, the two
-feature-gradient kernels), against their plain versions, and the
-deterministic-mode train iteration.
+feature-gradient kernels, and the three small-map kernels), against their
+plain versions, and the deterministic-mode train iteration.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so on a GPU host without JAX it runs with
@@ -296,3 +296,122 @@ def test_train_iteration_in_deterministic_mode(epoch, dev):
     assert torch.isfinite(g0) and torch.isfinite(d0)
     assert torch.equal(g0, g1) and torch.equal(d0, d1)
     assert all(torch.equal(v, gen1[k]) for k, v in gen0.items()) and all(torch.equal(v, dis1[k]) for k, v in dis0.items())
+
+
+# (b, c, h, w) of the small-map kernels: tiny, the 8² and 64² blocks of the
+# 256² recipe, and the scalar path (C = 5, 3; a 9x7 map)
+SMALL_SHAPES = [(2, 16, 8, 8), (8, 512, 8, 8), (8, 512, 64, 64), (2, 5, 12, 12), (1, 3, 9, 7)]
+SMALL_KERNELS = ("warp_fwd_small", "warp_dgrid_small", "warp_dx_small")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", SCATTER_FLOWS)
+@pytest.mark.parametrize("shape", SMALL_SHAPES)
+def test_small_kernels_match_plain(shape, s, dtype, dev):
+    x, grid = case(*shape, s, dtype, dev)
+    g = cotangent(x)
+    before = {n: getattr(warp, n).launches for n in SMALL_KERNELS}
+    out = warp.warp_fwd_small(x, grid)
+    dgrid = warp.warp_dgrid_small(x, grid, g)
+    dx = warp.warp_dx_small(grid, g)
+    torch.cuda.synchronize()
+    assert {n: getattr(warp, n).launches - before[n] for n in SMALL_KERNELS} == dict.fromkeys(SMALL_KERNELS, 1)
+    for t in (out, dx):
+        assert t.is_contiguous(memory_format=torch.channels_last) and t.dtype == dtype
+    ref = grid_sample_bicubic_plain(x, grid)
+    ref_dx, ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= 1e-5
+    else:
+        assert_dx_matches_plain(out, ref)  # one bf16 ulp of the output scale
+    assert dgrid.dtype == torch.float32 and (dgrid - ref_dgrid).abs().max().item() <= fp32_tol(ref_dgrid)
+    assert_dx_matches_plain(dx, ref_dx)
+
+
+def test_small_fwd_other_output_size_and_far_grid(dev):
+    x, grid = case(1, 8, 16, 16, 0.1, torch.float32, dev, hg=5, wg=11)
+    torch.testing.assert_close(warp.warp_fwd_small(x, grid), grid_sample_bicubic_plain(x, grid), atol=1e-5, rtol=0)
+    far = torch.full_like(grid, 1e30)
+    g = cotangent(warp.warp_fwd_small(x, far))
+    assert torch.count_nonzero(warp.warp_fwd_small(x, far)) == 0
+    assert torch.count_nonzero(warp.warp_dgrid_small(x, far, g)) == 0
+
+
+def test_dx_small_gathered_grid(dev):
+    """Every output pixel samples one spot: one bucket holds the whole map
+    (the heap-sorted path)."""
+    for c, h in ((16, 32), (512, 64)):
+        x, grid = case(2, c, h, h, 0.0, torch.float32, dev)
+        grid = torch.full_like(grid, 0.01)
+        g = cotangent(x)
+        dx = warp.warp_dx_small(grid, g)
+        assert_dx_matches_plain(dx, grid_sample_bicubic_plain_backward(x, grid, g)[0])
+        assert torch.equal(dx, warp.warp_dx_small(grid, g))
+        assert torch.count_nonzero(warp.warp_dx_small(torch.full_like(grid, 1e30), g)) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [8, 64])
+def test_small_backward_kernels_are_deterministic(h, dtype, dev):
+    x, grid = case(8, 512, h, h, 0.1, dtype, dev)
+    g = cotangent(x)
+    assert torch.equal(warp.warp_dgrid_small(x, grid, g), warp.warp_dgrid_small(x, grid, g))
+    assert torch.equal(warp.warp_dx_small(grid, g), warp.warp_dx_small(grid, g))
+
+
+def test_small_kernels_refuse(dev):
+    x, grid = case(1, 8, 72, 72, 0.1, torch.float32, dev)
+    g = cotangent(x)
+    for call in (lambda: warp.warp_fwd_small(x, grid), lambda: warp.warp_dgrid_small(x, grid, g),
+                 lambda: warp.warp_dx_small(grid, g)):
+        with pytest.raises(ValueError, match="at most 64"):
+            call()
+    x, grid = case(1, 8, 16, 16, 0.1, torch.float32, dev)
+    g = cotangent(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        warp.warp_fwd_small(x.cpu(), grid.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        warp.warp_dx_small(grid.cpu(), g.cpu())
+    with pytest.raises(ValueError, match="channels_last"):
+        warp.warp_dgrid_small(x, grid, g.contiguous())
+    with pytest.raises(ValueError, match="map size"):
+        warp.warp_dx_small(grid[:, :4].contiguous(), g)
+
+
+@pytest.mark.parametrize("s", [0.1, 0.6])
+def test_autograd_function_small_route_on_card_matches_cpu(s, dev):
+    """small=True runs the small-map kernels both ways on the card and no
+    other kernel; the grads agree with the Function's CPU path."""
+    x, grid = case(2, 64, 32, 32, s, torch.float32, dev)
+    g = cotangent(x)
+    names = ("warp_fwd", "warp_dgrid", "warp_dx", "warp_dx_scatter") + SMALL_KERNELS
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        xd = x.detach().to(device).requires_grad_()
+        gd = grid.detach().to(device).requires_grad_()
+        before = {n: getattr(warp, n).launches for n in names}
+        out = warp.grid_sample_bicubic(xd, gd, True)
+        out.backward(g.to(device).contiguous())  # not channels_last
+        ran = {n: getattr(warp, n).launches - before[n] for n in names}
+        on_card = int(device.type == "cuda")
+        assert ran == {n: on_card * (n in SMALL_KERNELS) for n in names}
+        grads.append((out.detach().cpu(), xd.grad.cpu(), gd.grad.cpu()))
+    (out, dx, dgrid), (ref, ref_dx, ref_dgrid) = grads
+    assert (out - ref).abs().max().item() <= 1e-5
+    assert (dx - ref_dx).abs().max().item() <= fp32_tol(ref_dx)
+    assert (dgrid - ref_dgrid).abs().max().item() <= fp32_tol(ref_dgrid)
+
+
+def test_generator_256_small_route_launches(dev):
+    """warp_pallas_min_res=8 at the 256² widths: the four 8²-64² blocks
+    (C = 512) launch the small-map forward, the 128² and 256² blocks the
+    general one."""
+    card = Generator(img_resolution=256, base_nf=128, max_nf=512, warp_pallas_min_res=8, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0)).to(dev, memory_format=torch.channels_last).eval()
+    z = torch.randn((2, 64), generator=torch.Generator().manual_seed(1)).to(dev)
+    before = (warp.warp_fwd_small.launches, warp.warp_fwd.launches)
+    with torch.no_grad():
+        out = card(z, z, w_psi=0.7)
+    torch.cuda.synchronize()
+    assert (warp.warp_fwd_small.launches - before[0], warp.warp_fwd.launches - before[1]) == (4, 2)
+    assert out.shape == (2, 3, 256, 256) and torch.isfinite(out.float()).all()
