@@ -128,7 +128,7 @@ GENERAL_OF = dict(warp_fwd_small="warp_fwd", warp_dgrid_small="warp_dgrid", warp
 # tiny odd-C map that takes the kernels' scalar path
 SMALL_PATH_WARPS = MAIN_PATH_WARPS[:4]
 SMALL_CHECK_SHAPES = SMALL_PATH_WARPS + [(2, 5, 12)]
-MIX_WINDOWS_ROUTES = 2  # timed windows of the 256² mix per warp route, in turns
+MIX_WINDOWS_ROUTES = 4  # timed windows of the 256² mix per warp route, in turns
 
 failures: list[str] = []
 
@@ -453,7 +453,6 @@ def run_generation_path() -> int:
     from lcgan_torch.config import Config
     from lcgan_torch.gen.artifacts import to_unit
     from lcgan_torch.models.generator import build_generator
-    from lcgan_torch.ops import warp
     from lcgan_torch.train.loop import load_ema_generator
     from lcgan_torch.train.steps import Trainer
     from lcgan_torch.utils.checkpoint import save_state, state_path
@@ -477,8 +476,9 @@ def run_generation_path() -> int:
         cli.main(["--phase", "fake_image_generation", "--model_name", run, "--num_fakes", str(num_fakes)])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = warp.warp_fwd.launches
-        small = {k: getattr(warp, k).launches for k in SMALL_KERNELS}
+        counts = read_launches()
+        launches = counts["warp_fwd"]
+        small = {k: counts[k] for k in SMALL_KERNELS}
 
         n_img = num_fakes * cfg.batch_size
         print(f"generation path: {n_img} images in {seconds:.3f} s = {n_img / seconds:.2f} images/s "
@@ -549,7 +549,6 @@ def run_training_path() -> None:
     import torch
 
     from lcgan_torch.config import Config
-    from lcgan_torch.ops import warp
     from lcgan_torch.train.freeze import freeze_mask
     from lcgan_torch.train.steps import Trainer
 
@@ -564,8 +563,7 @@ def run_training_path() -> None:
     print(f"training path: flagship 256² recipe, G {n_g:.2f} M + D {n_d:.2f} M params, bf16, batch 8", flush=True)
 
     initial = {name: snapshot(m) for name, m in (("G", state.generator), ("D", state.discriminator), ("EMA", state.ema))}
-    for k in KERNELS:
-        getattr(warp, k).launches = 0
+    reset_launches()
     losses, after_epoch1 = [], None
     t0 = time.perf_counter()
     for epoch in range(4):
@@ -575,7 +573,7 @@ def run_training_path() -> None:
             after_epoch1 = snapshot(state.discriminator)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: getattr(warp, k).launches for k in KERNELS}
+    launches = read_launches()
     print(f"training path: epochs 0-3 in {seconds:.3f} s (first calls included); losses (g, d) {losses}", flush=True)
     expect = dict(warp_fwd=cfg.num_blocks * (4 + 2 + 4 + 2), warp_dgrid=cfg.num_blocks * (3 + 1 + 3 + 1))
     expect["warp_dx"] = expect["warp_dgrid"]
@@ -949,20 +947,18 @@ def run_train_phase(data: str, run: str) -> dict:
     from PIL import Image
 
     from lcgan_torch import native
-    from lcgan_torch.ops import warp
 
     print(f"train phase: 512² recipe, input pipeline on the "
           f"{'native C++ loader' if native.available() else 'Python/cv2 decoder (native loader unavailable)'}",
           flush=True)
     base = ["--phase", "train", "--dataset_path", data, "--model_name", run, *TRAIN_512,
             "--save_interval", "3", "--print_interval", "1", "--show_interval", "1000"]
-    for k in KERNELS:
-        getattr(warp, k).launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = run_cli(base + ["--epoch", "3"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: getattr(warp, k).launches for k in KERNELS}
+    launches = read_launches()
     print(f"train phase: epochs 0-3 through the CLI in {seconds:.3f} s (build, first calls, data and one save included)",
           flush=True)
     expect = dict(warp_fwd=7 * 12, warp_dgrid=7 * 8, warp_dx=6 * 8, warp_dx_scatter=1 * 8)
@@ -1309,7 +1305,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="lcgan_smoke_512_") as tmp:
         data = os.path.join(tmp, "data")
         synthetic_jpeg_folder(data, 32, 512)
-        launches = run_train_phase(data, os.path.join(tmp, "run"))  # PR 3's path: the general kernels' counts
+        launches = run_train_phase(data, os.path.join(tmp, "run"))  # the 512² path: the general kernels' counts
         run_train_512(data, os.path.join(tmp, "mix"))
         check_resume_512(os.path.join(tmp, "resume"))
     with tempfile.TemporaryDirectory(prefix="lcgan_smoke_256_") as tmp:

@@ -36,7 +36,9 @@
 // integer operations, overlapped with the copy of g. Shared memory per
 // block: the group's map of g, 16 bytes per pixel (its fractional offsets,
 // bucket and list slot) and one int per bucket ((H+3)(W+3) + 1 of them),
-// under 227 KB at 64² for groups of 8 channels.
+// 210 KB at 64² for a bf16 group of 16 channels: one block per SM, so the
+// host makes the groups as wide as about one block per SM allows, and so
+// rebuilds the index as few times as it can.
 //
 // The sums are fp32, in a fixed order, and no float atomics are used: the
 // result is exact for any grid and bitwise the same on every run. A grid that
@@ -97,7 +99,7 @@ warp_dx_small_kernel(const float* __restrict__ grid, const T* __restrict__ g, T*
   const int nkeys = (H + 3) * (W + 3);  // buckets (by + 3, bx + 3): every base with a tap on the map
   T* s_g = reinterpret_cast<T*>(smem);  // [npix][cw]
   float2* s_t = reinterpret_cast<float2*>(smem + (((size_t)npix * cw * sizeof(T) + 15) & ~(size_t)15));
-  int* s_key = reinterpret_cast<int*>(s_t + npix);  // each pixel's bucket, or -1
+  int* s_key = reinterpret_cast<int*>(s_t + npix);  // each pixel's bucket (or -1), then its bx + 3
   int* s_list = s_key + npix;                       // pixel indices, grouped by bucket
   int* s_end = s_list + npix;                       // [nkeys + 1]: counts, then offsets
 
@@ -123,7 +125,9 @@ warp_dx_small_kernel(const float* __restrict__ grid, const T* __restrict__ g, T*
   block_exclusive_scan(s_end, nkeys + 1);  // s_end[k]: bucket k's first slot
   for (int p = threadIdx.x; p < npix; p += blockDim.x) {
     const int k = s_key[p];
-    if (k >= 0) s_list[atomicAdd(&s_end[k], 1)] = p;
+    if (k < 0) continue;
+    s_list[atomicAdd(&s_end[k], 1)] = p;
+    s_key[p] = k - (k / (W + 3)) * (W + 3);  // from here on: the pixel's bx + 3
   }
   __syncthreads();
   // s_end[k] is now bucket k's end, and bucket k spans [k ? s_end[k-1] : 0, s_end[k])
@@ -143,13 +147,14 @@ warp_dx_small_kernel(const float* __restrict__ grid, const T* __restrict__ g, T*
     float acc[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+#pragma unroll
     for (int dy = 3; dy >= 0; --dy) {  // bucket rows by = u - dy, ascending
       const int k0 = (u - dy + 3) * (W + 3) + v;  // buckets (by, v - 3 .. v)
       const int hi = s_end[k0 + 3];
       for (int e = k0 ? s_end[k0 - 1] : 0; e < hi; ++e) {
         const int p = s_list[e];
         const float2 t = s_t[p];
-        const int i = v - (s_key[p] % (W + 3) - 3);  // the tap's column in p's 4x4 window
+        const int i = v + 3 - s_key[p];  // the tap's column in p's 4x4 window
         const float wgt = cubic_tap(t.y, dy) * cubic_tap(t.x, i);
         float gv[VEC];
         Vec<T, VEC>::load(s_g + p * cw + c, gv);

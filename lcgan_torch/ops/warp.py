@@ -59,7 +59,8 @@ _DX_SPLIT_C = 128  # dx kernel by channel count, as _vjp_bwd splits it (lcgan_tp
 _SCAN_TILE = 1024  # counts scanned per block: kScanTile in csrc/warp_dx_scatter.cu
 _SMALL_MAX = 64  # the small-map kernels take maps of at most 64²
 _SMALL_SMEM = 229_376  # shared memory a small-map block may take: kMaxSmem in csrc/warp_small.cuh
-_SMALL_MIN_BLOCKS = 264  # about two blocks per SM of an H100 (132 SMs)
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_SMALL_MIN_BLOCKS = 2 * _SMS  # about two blocks per SM
 _fns: dict = {}
 
 
@@ -293,11 +294,12 @@ def _check_small_map(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} takes maps of at most {_SMALL_MAX}², got {tuple(t.shape[2:])}")
 
 
-def _small_channels(b: int, c: int, h: int, w: int, t: torch.Tensor, vec: int, extra_smem: int = 0) -> int:
+def _small_channels(b: int, c: int, h: int, w: int, t: torch.Tensor, vec: int, extra_smem: int = 0,
+                    min_blocks: int = _SMALL_MIN_BLOCKS) -> int:
     """Channels per block of a small-map kernel (one block per batch element
     and channel group): C, halved while the group's h·w map with
     ``extra_smem`` bytes of the kernel's own overflows a block's shared
-    memory or the grid has fewer than _SMALL_MIN_BLOCKS blocks; a multiple of
+    memory or the grid has fewer than ``min_blocks`` blocks; a multiple of
     the 16-byte vector's channels on the vector path."""
     step = 16 // t.element_size() if vec else 1
 
@@ -305,10 +307,8 @@ def _small_channels(b: int, c: int, h: int, w: int, t: torch.Tensor, vec: int, e
         return h * w * cg * t.element_size() + extra_smem
 
     cg = c
-    while cg > step and (smem(cg) > _SMALL_SMEM or b * -(-c // cg) < _SMALL_MIN_BLOCKS):
+    while cg > step and (smem(cg) > _SMALL_SMEM or b * -(-c // cg) < min_blocks):
         cg = max(step, cg // 2 // step * step)
-    if smem(cg) > _SMALL_SMEM:
-        raise ValueError(f"a {h}x{w} map does not fit a block's shared memory")
     return cg
 
 
@@ -394,7 +394,8 @@ def warp_dx_small(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return dx
     fn = _fn("warp_dx_small")
     vec = _vec(g, dx)
-    cg = _small_channels(b, c, h, w, g, vec, _dx_small_extra_smem(h, w))
+    # its index takes a block's shared memory at 64²: one block per SM
+    cg = _small_channels(b, c, h, w, g, vec, _dx_small_extra_smem(h, w), _SMS)
     with torch.cuda.device(g.device):
         rc = fn(grid.data_ptr(), g.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype], vec, b, c, h, w, cg, _stream(g))
     _raise_on(rc, "warp_dx_small")

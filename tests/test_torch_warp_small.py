@@ -160,7 +160,7 @@ def test_autograd_function_small_route_on_cpu_is_plain(s):
     assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
-def test_small_kernel_wrappers_refuse_cpu_tensors_and_large_maps():
+def test_small_kernel_wrappers_refuse_cpu_tensors():
     x, grid, g = case((1, 8, 8, 4), 0.1)
     xt = nchw(x).contiguous(memory_format=torch.channels_last)
     gt = nchw(g).contiguous(memory_format=torch.channels_last)
@@ -174,14 +174,17 @@ def test_small_kernel_wrappers_refuse_cpu_tensors_and_large_maps():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_small_channel_groups(dtype):
-    """The CUDA kernels' own groups: C halved until about two blocks per SM
-    of an H100 and the map fits a block's shared memory, in whole vectors."""
+    """The CUDA kernels' own groups: C halved until the grid has enough
+    blocks (about two per SM of an H100; warp_dx_small, whose index fills a
+    block's shared memory at 64², about one) and the map fits a block's
+    shared memory, in whole 16-byte vectors."""
     t = torch.empty(0, dtype=dtype)
     for h in (8, 16, 32, 64):
         extra = t_warp._dx_small_extra_smem(h, h)
         assert t_warp._small_channels(8, 512, h, h, t, 1) == 8
-        assert t_warp._small_channels(8, 512, h, h, t, 1, extra) == 8
-        assert h * h * 8 * t.element_size() + extra <= t_warp._SMALL_SMEM
+        dx_cg = t_warp._small_channels(8, 512, h, h, t, 1, extra, t_warp._SMS)
+        assert dx_cg == (8 if (h, dtype) == (64, torch.float32) else 16)  # 16 fp32 channels at 64² overflow
+        assert h * h * dx_cg * t.element_size() + extra <= t_warp._SMALL_SMEM
     assert t_warp._small_channels(2, 5, 12, 12, t, 0) == 1  # the scalar path: any C
     assert t_warp._small_channels(1024, 512, 8, 8, t, 1) == 512  # enough blocks from the batch alone
 
