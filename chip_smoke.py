@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-1. Builds every CUDA kernel of the generation and training paths from
-   lcgan_torch/ops/csrc with nvcc for sm_90a, one nvcc per source, in
-   parallel: warp_fwd, warp_dgrid, warp_dx, warp_dx_scatter, and the
-   small-map route's warp_fwd_small, warp_dgrid_small, warp_dx_small.
+1. Builds every CUDA kernel of the port from lcgan_torch/ops/csrc with nvcc
+   for sm_90a, one nvcc per source, in parallel: warp_fwd, warp_dgrid,
+   warp_dx, warp_dx_scatter, the small-map route's warp_fwd_small,
+   warp_dgrid_small, warp_dx_small, and the probes' gather_probe and
+   dyn_trip_probe (two kernels: dyn_trip_static, dyn_trip_dyn).
 2. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, in fp32 (max abs error <= 1e-5, scaled by the
    gradient's magnitude where it exceeds 1: the gradients sum up to C·16
@@ -79,10 +80,25 @@
    and 128 in turns (images/s each), and an even-step profile of the small
    route with the warp kernels' share. Steps 4-6 run with the default
    (128) and must launch no small-map kernel.
-8. Prints the kernels as one JSON line (launches from step 6, and from
-   step 7 for the small-map kernels), the whole run's wall time, the card's
-   name and power limit, and last the ok line. Exits nonzero, printing no
-   result, on any failure and when no GPU is present.
+8. The probes (lcgan_torch.tools), whose path is their own entry points:
+   gather_probe against take_along_dim on the (256, 128) fp32 tile,
+   exactly, for random, all-0 and all-255 indices; dyn_trip_static and
+   dyn_trip_dyn against an fp64 sum at 16 packs (n = 16, 8 and, for the
+   loaded count, 0; max abs error <= 1e-5 x max|ref|: fp32 sums of n·256
+   products), the two bitwise equal. Times each beside its plain version,
+   the one PyTorch call for the same function (torch.gather; one torch.mm
+   of the packs side by side against w stacked, TF32 off) and its bound.
+   Then runs each entry point's main() with its defaults, counts set to 0
+   just before and read just after (gather_probe 41 launches, dyn_trip_static
+   4130, dyn_trip_dyn 8258), and once more as `python -m` in a fresh
+   process, and checks the rows A, B, C and the GO / NO-GO line.
+9. Prints the whole run's wall time, each kernel's time and bound per
+   launch (a row's sums over the calls it times) with launches x (time -
+   bound), the kernels as one JSON line (launches from step 6, from step 7
+   for the small-map kernels and from step 8 for the probes'), the card's
+   name and power limit, and last the ok line.
+   Exits nonzero, printing no result, on any failure and when no GPU is
+   present.
 """
 
 from __future__ import annotations
@@ -129,6 +145,13 @@ GENERAL_OF = dict(warp_fwd_small="warp_fwd", warp_dgrid_small="warp_dgrid", warp
 SMALL_PATH_WARPS = MAIN_PATH_WARPS[:4]
 SMALL_CHECK_SHAPES = SMALL_PATH_WARPS + [(2, 5, 12)]
 MIX_WINDOWS_ROUTES = 4  # timed windows of the 256² mix per warp route, in turns
+# the probes' kernels (lcgan_torch.tools), their sources, and the TPU kernels they replace
+PROBE_KERNELS = ("gather_probe", "dyn_trip_static", "dyn_trip_dyn")
+PROBE_SOURCE = dict(gather_probe="gather_probe", dyn_trip_static="dyn_trip_probe", dyn_trip_dyn="dyn_trip_probe")
+PROBE_REPLACES = dict(gather_probe="tools/gather_probe.py:39", dyn_trip_static="tools/dyn_trip_probe.py:31",
+                      dyn_trip_dyn="tools/dyn_trip_probe.py:40")
+PROBE_PACKS = 16  # the trip-count probe's default --packs
+PROBE_COUNTS = (16, 8, 0)  # loaded counts held against fp64; the static kernel has no count 0
 
 failures: list[str] = []
 
@@ -197,7 +220,7 @@ def build_kernels() -> None:
     from lcgan_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build(list(KERNELS))
+    reports = _build.build(list(KERNELS) + sorted(set(PROBE_SOURCE.values())))
     print(f"build: {sorted(reports) or 'already built'} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, report in reports.items():
         for line in report.splitlines():
@@ -1275,6 +1298,180 @@ def compare_routes_256() -> None:
     torch.cuda.empty_cache()
 
 
+def probe_inputs():
+    """The gather probe's (256, 128) fp32 tile, and the trip-count probe's
+    PROBE_PACKS packs and w, seeded."""
+    import torch
+
+    from lcgan_torch.tools import dyn_trip_probe, gather_probe
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tile = torch.randn(gather_probe.TILE, generator=g, device="cuda")
+    x = torch.randn((PROBE_PACKS, dyn_trip_probe.PACK, dyn_trip_probe.PACK), generator=g, device="cuda")
+    w = torch.randn((dyn_trip_probe.PACK, dyn_trip_probe.PACK), generator=g, device="cuda")
+    return tile, x, w
+
+
+def trip_count(n: int):
+    import torch
+
+    return torch.tensor([n], dtype=torch.int32, device="cuda")
+
+
+def check_probe_kernels() -> dict:
+    """The gather kernel against its plain version at the probe's tile,
+    exactly, for random, all-0 and all-255 indices; the two trip-count
+    kernels against an fp64 sum at PROBE_PACKS packs for the counts
+    PROBE_COUNTS (the static one where it is built for the count), and
+    dyn(n) == static(n) bitwise. Returns each kernel's largest error."""
+    import torch
+
+    from lcgan_torch.tools import dyn_trip_probe as p2
+    from lcgan_torch.tools import gather_probe as p1
+
+    worst = dict.fromkeys(PROBE_KERNELS, 0.0)
+    tile, x, w = probe_inputs()
+    rows = p1.TILE[0]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for kind, idx in (("random", torch.randint(0, rows, p1.TILE, generator=g, device="cuda", dtype=torch.int32)),
+                      ("all 0", torch.zeros(p1.TILE, dtype=torch.int32, device="cuda")),
+                      (f"all {rows - 1}", torch.full(p1.TILE, rows - 1, dtype=torch.int32, device="cuda"))):
+        out = p1.gather_probe(tile, idx)
+        want = p1.take_along_rows_plain(tile, idx)
+        err = (out - want).abs().max().item()
+        worst["gather_probe"] = max(worst["gather_probe"], err)
+        same = torch.equal(out, want)
+        check(same, f"gather_probe (256,128) fp32, {kind} indices: equal to take_along_dim {same} "
+                    f"(max_abs_err {err:.3g}; a gather is exact)")
+    for n in PROBE_COUNTS:
+        ref = (x[:n].double() @ w.double()).sum(0)
+        tol = 1e-5 * ref.abs().max().item()
+        got = dict(dyn_trip_dyn=p2.dyn_trip_dyn(trip_count(n), x, w))
+        if n in p2.STATIC_COUNTS:
+            got["dyn_trip_static"] = p2.dyn_trip_static(x, w, n)
+        plain_err = (p2.packed_sum_plain(x, w, n).double() - ref).abs().max().item()
+        for name, out in got.items():
+            err = (out.double() - ref).abs().max().item()
+            worst[name] = max(worst[name], err)
+            check(err <= tol, f"{name} packs={PROBE_PACKS} n={n}: max_abs_err {err:.3g} against an fp64 sum "
+                              f"(tol {tol:.3g} = 1e-5 x max|ref|); the plain version's {plain_err:.3g}")
+        if "dyn_trip_static" in got:
+            same = torch.equal(got["dyn_trip_dyn"], got["dyn_trip_static"])
+            check(same, f"dyn_trip_dyn(n={n}) == dyn_trip_static({n}) bitwise: {same}")
+    return worst
+
+
+def time_probe_kernels(bw: float, flops: float) -> dict:
+    """Each probe kernel at its probe's shape (the (256, 128) tile; PROBE_PACKS
+    packs at n = PROBE_PACKS, and n / 2 beside it) beside its plain version,
+    the one PyTorch call for the same function (torch.gather; one torch.mm
+    of the n packs side by side, (256, 256n), against w stacked n times,
+    (256n, 256), TF32 off) and its bound, in turns (K, P, L, L, P, K; the
+    lower of each pair)."""
+    import torch
+
+    from lcgan_torch.tools import dyn_trip_probe as p2
+    from lcgan_torch.tools import gather_probe as p1
+
+    rows = {}
+    tile, x, w = probe_inputs()
+    idx = torch.randint(0, p1.TILE[0], p1.TILE, generator=torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda", dtype=torch.int32)
+    idx64 = idx.long()  # torch.gather's index type, converted outside the timed region
+    calls = (lambda: p1.gather_probe(tile, idx), lambda: p1.take_along_rows_plain(tile, idx),
+             lambda: torch.gather(tile, 0, idx64))
+    # 100 single launches (the plain version two each) fit behind cuda_ms's hold
+    k1, pl1, l1, l2, pl2, k2 = (cuda_ms(calls[i], (100, 50, 100)[i]) for i in (0, 1, 2, 2, 1, 0))
+    nbytes = (tile.numel() + 2 * idx.numel()) * 4  # x and idx read, out written
+    rows["gather_probe"] = dict(ms=min(k1, k2), plain_ms=min(pl1, pl2), library_ms=min(l1, l2),
+                                bound_ms=nbytes / bw * 1e3, bound_by="bytes")
+    r = rows["gather_probe"]
+    print(f"time gather_probe (256,128) fp32: kernel {r['ms']:.4f} ms, plain take_along_dim {r['plain_ms']:.4f} ms, "
+          f"torch.gather {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({nbytes / 1024:.0f} KiB, bytes), "
+          f"kernel at {r['bound_ms'] / r['ms']:.1%} of bound (launch-bound)", flush=True)
+
+    pack = p2.PACK
+    for n in (PROBE_PACKS, PROBE_PACKS // 2):
+        count = trip_count(n)
+        xcat = x[:n].permute(1, 0, 2).reshape(pack, pack * n)  # the n packs side by side
+        wstack = w.repeat(n, 1)  # w stacked n times
+        calls = (lambda: p2.dyn_trip_static(x, w, n), lambda: p2.dyn_trip_dyn(count, x, w),
+                 lambda: p2.packed_sum_plain(x, w, n), lambda: torch.mm(xcat, wstack))
+        # the plain loop is 2n launches a call: few calls, so that they fit behind cuda_ms's hold
+        s1, d1, pl1, l1, l2, pl2, d2, s2 = (cuda_ms(calls[i], (100, 100, 4, 100)[i]) for i in (0, 1, 2, 3, 3, 2, 1, 0))
+        nflops = 2 * pack ** 3 * n
+        nbytes = (n + 2) * pack * pack * 4  # the n packs and w read, out written
+        flops_ms, bytes_ms = nflops / flops * 1e3, nbytes / bw * 1e3
+        bound = max(flops_ms, bytes_ms)
+        bound_by = "operations" if flops_ms >= bytes_ms else "bytes"
+        s, d = min(s1, s2), min(d1, d2)
+        print(f"time dyn_trip packs={PROBE_PACKS} n={n} fp32: static {s:.4f} ms, dyn {d:.4f} ms ({d / s:.3f}x), "
+              f"plain (loop of x[i] @ w) {min(pl1, pl2):.4f} ms, torch.mm ({pack}, {pack * n}) x ({pack * n}, {pack}) "
+              f"{min(l1, l2):.4f} ms, bound {bound:.4f} ms ({nflops / 1e9:.3f} GFLOP = {flops_ms:.4f} ms; "
+              f"{nbytes / 1e6:.2f} MB = {bytes_ms:.4f} ms; {bound_by}), static at {bound / s:.1%} and dyn at "
+              f"{bound / d:.1%} of bound", flush=True)
+        if n == PROBE_PACKS:
+            for name, ms in (("dyn_trip_static", s), ("dyn_trip_dyn", d)):
+                rows[name] = dict(ms=ms, plain_ms=min(pl1, pl2), library_ms=min(l1, l2), bound_ms=bound,
+                                  bound_by=bound_by)
+    return rows
+
+
+def check_probe_output(module: str, text: str) -> None:
+    """The rows and the verdict that the entry point must print."""
+    lines = text.splitlines()
+    if module.endswith("gather_probe"):
+        rows = [line.split(":")[0] for line in lines if "ms device" in line]
+        check(rows == ["A", "B", "C", "C"], f"{module}: rows A, B and C (fwd, grad) with device ms: {rows}")
+    else:
+        verdict = [line for line in lines if line.startswith(("GO:", "NO-GO:"))]
+        check("correctness: dynamic bound == static loop at n and n/2 (bitwise)" in lines and len(verdict) == 1
+              and any(line.startswith(f"packs={PROBE_PACKS} chain=32 (device, CUDA events") for line in lines),
+              f"{module}: the correctness line, device times and the verdict {verdict}")
+
+
+def run_probe_entry_points() -> dict:
+    """The probes' main path: each entry point's main() with its defaults in
+    this process, the launch counts set to 0 just before and read just after;
+    then each once as ``python -m`` in a fresh process. Returns the launches
+    of the in-process runs."""
+    from lcgan_torch.tools import dyn_trip_probe as p2
+    from lcgan_torch.tools import gather_probe as p1
+
+    reps, chain = 64, 32  # dyn_trip_probe's defaults
+    timed = (1 + 2 * reps) * chain  # one warm call, then host-clock and CUDA-event runs of reps chains
+    runs = (
+        (p1, dict(gather_probe=p1.gather_probe), dict(gather_probe=1 + 2 * 20)),  # row A: one warm call, 20 + 20
+        (p2, dict(dyn_trip_static=p2.dyn_trip_static, dyn_trip_dyn=p2.dyn_trip_dyn),
+         dict(dyn_trip_static=2 + timed, dyn_trip_dyn=2 + 2 * timed)),  # the correctness calls, then the chains
+    )
+    launches = {}
+    for module, wrappers, expect in runs:
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            module.main([])
+        got = {name: fn.launches for name, fn in wrappers.items()}
+        print(f"probe {module.__name__}.main() in {time.perf_counter() - t0:.3f} s:", flush=True)
+        for line in out.getvalue().splitlines():
+            print(f"  | {line}", flush=True)
+        check_probe_output(module.__name__, out.getvalue())
+        for name, n in got.items():
+            check(n == expect[name], f"{name} launches on the probe's entry point: {n} (expect {expect[name]})")
+        launches.update(got)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", module.__name__], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        print(f"probe python -m {module.__name__}: rc {proc.returncode} in {time.perf_counter() - t0:.3f} s", flush=True)
+        for line in proc.stdout.splitlines():
+            print(f"  | {line}", flush=True)
+        check(proc.returncode == 0, f"python -m {module.__name__} exits 0 (stderr: {proc.stderr[-1500:]})")
+        check_probe_output(f"python -m {module.__name__}", proc.stdout)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1314,7 +1511,19 @@ def main() -> int:
         small = run_train_phase_small(data, os.path.join(tmp, "run"))  # this slice's path: the small-map counts
         launches.update({k: small[k] for k in SMALL_KERNELS})
         compare_routes_256()
+    worst.update(check_probe_kernels())  # the probes: their own entry points
+    times.update(time_probe_kernels(bw, flops))
+    launches.update(run_probe_entry_points())
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # per launch: each row's times over the calls it sums, for ranking the
+    # kernels by launches x (time - bound)
+    summed = dict.fromkeys(("warp_fwd", "warp_dgrid", "warp_dx"), len(MAIN_PATH_WARPS))
+    summed.update(dict.fromkeys(SMALL_KERNELS, len(SMALL_PATH_WARPS)))
+    for kernel in KERNELS + PROBE_KERNELS:
+        ms, bound = (times[kernel][k] / summed.get(kernel, 1) for k in ("ms", "bound_ms"))
+        print(f"per launch {kernel}: {ms:.4f} ms, bound {bound:.4f} ms, {launches[kernel]} launches, "
+              f"launches x (ms - bound) = {launches[kernel] * (ms - bound):.3f} ms", flush=True)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
@@ -1322,11 +1531,12 @@ def main() -> int:
     replaces = dict(warp_fwd="lcgan_tpu/ops/warp_pallas.py:442", warp_dgrid="lcgan_tpu/ops/warp_pallas.py:835",
                     warp_dx="lcgan_tpu/ops/warp_pallas.py:901", warp_dx_scatter="lcgan_tpu/ops/warp_pallas.py:988",
                     warp_fwd_small="lcgan_tpu/ops/warp_pallas.py:589", warp_dgrid_small="lcgan_tpu/ops/warp_pallas.py:629",
-                    warp_dx_small="lcgan_tpu/ops/warp_pallas.py:679")
+                    warp_dx_small="lcgan_tpu/ops/warp_pallas.py:679", **PROBE_REPLACES)
+    source = {**{name: name for name in KERNELS}, **PROBE_SOURCE}
     kernels = [dict(
         name=name,
         route="cuda",
-        source=f"lcgan_torch/ops/csrc/{name}.cu",
+        source=f"lcgan_torch/ops/csrc/{source[name]}.cu",
         replaces=replaces[name],
         launches=launches[name],
         max_abs_err=worst[name],
@@ -1335,7 +1545,7 @@ def main() -> int:
         bound_ms=times[name]["bound_ms"],
         bound_by=times[name]["bound_by"],
         library_ms=times[name]["library_ms"],
-    ) for name in KERNELS]
+    ) for name in KERNELS + PROBE_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -26,6 +26,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -87,3 +88,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, typed: it returns
+    the launch's cudaError as an int. Built and loaded at first use."""
+    key = f"{name}:{symbol}"
+    fn = _entries.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[key] = fn
+    return fn
+
+
+def raise_on(rc: int, name: str) -> None:
+    """Raise if a kernel's C entry point returned a cudaError (its launch was
+    refused)."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")

@@ -61,7 +61,6 @@ _SMALL_MAX = 64  # the small-map kernels take maps of at most 64²
 _SMALL_SMEM = 229_376  # shared memory a small-map block may take: kMaxSmem in csrc/warp_small.cuh
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 _SMALL_MIN_BLOCKS = 2 * _SMS  # about two blocks per SM
-_fns: dict = {}
 
 
 # ----------------------------------------------------------------------------
@@ -132,14 +131,7 @@ def small_route(warp_impl: str, warp_pallas_min_res: int, h: int, w: int, c: int
 
 def _fn(name: str) -> ctypes._CFuncPtr:
     """The kernel's C entry point, built, loaded and typed at first use."""
-    fn = _fns.get(name)
-    if fn is None:
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(_build.load(name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+    return _build.entry(name, *_SIGNATURES[name])
 
 
 def _check_features(name: str, t: torch.Tensor, what: str) -> None:
@@ -168,11 +160,6 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-
-
 def warp_fwd(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA forward-warp kernel. Counts its launches in
     ``warp_fwd.launches``.
@@ -192,7 +179,7 @@ def warp_fwd(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), grid.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], _vec(x),
                 b, c, h, w, hg, wg, _stream(x))
-    _raise_on(rc, "warp_fwd")
+    _build.raise_on(rc, "warp_fwd")
     warp_fwd.launches += 1
     return out
 
@@ -220,7 +207,7 @@ def warp_dgrid(x: torch.Tensor, grid: torch.Tensor, g: torch.Tensor) -> torch.Te
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), grid.data_ptr(), g.data_ptr(), dgrid.data_ptr(), _DTYPES[x.dtype], _vec(x, g),
                 b, c, h, w, hg, wg, _stream(x))
-    _raise_on(rc, "warp_dgrid")
+    _build.raise_on(rc, "warp_dgrid")
     warp_dgrid.launches += 1
     return dgrid
 
@@ -251,7 +238,7 @@ def warp_dx(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(g.device):
         rc = fn(grid.data_ptr(), g.data_ptr(), partial.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype], _vec(g, dx),
                 b, c, h, w, _stream(g))
-    _raise_on(rc, "warp_dx")
+    _build.raise_on(rc, "warp_dx")
     warp_dx.launches += 1
     return dx
 
@@ -284,7 +271,7 @@ def warp_dx_scatter(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(g.device):
         rc = fn(grid.data_ptr(), g.data_ptr(), scratch.data_ptr(), n_ints, dx.data_ptr(), _DTYPES[g.dtype],
                 _vec(g, dx), b, c, h, w, _stream(g))
-    _raise_on(rc, "warp_dx_scatter")
+    _build.raise_on(rc, "warp_dx_scatter")
     warp_dx_scatter.launches += 1
     return dx
 
@@ -340,7 +327,7 @@ def warp_fwd_small(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), grid.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], vec, b, c, h, w, hg, wg, cg,
                 _stream(x))
-    _raise_on(rc, "warp_fwd_small")
+    _build.raise_on(rc, "warp_fwd_small")
     warp_fwd_small.launches += 1
     return out
 
@@ -373,7 +360,7 @@ def warp_dgrid_small(x: torch.Tensor, grid: torch.Tensor, g: torch.Tensor) -> to
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), grid.data_ptr(), g.data_ptr(), partial.data_ptr(), dgrid.data_ptr(), _DTYPES[x.dtype],
                 vec, b, c, h, w, hg, wg, cg, _stream(x))
-    _raise_on(rc, "warp_dgrid_small")
+    _build.raise_on(rc, "warp_dgrid_small")
     warp_dgrid_small.launches += 1
     return dgrid
 
@@ -398,7 +385,7 @@ def warp_dx_small(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     cg = _small_channels(b, c, h, w, g, vec, _dx_small_extra_smem(h, w), _SMS)
     with torch.cuda.device(g.device):
         rc = fn(grid.data_ptr(), g.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype], vec, b, c, h, w, cg, _stream(g))
-    _raise_on(rc, "warp_dx_small")
+    _build.raise_on(rc, "warp_dx_small")
     warp_dx_small.launches += 1
     return dx
 

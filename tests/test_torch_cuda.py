@@ -1,6 +1,7 @@
 """The CUDA warp kernels on the card (forward, grid gradient, the two
 feature-gradient kernels, and the three small-map kernels), against their
-plain versions, and the deterministic-mode train iteration.
+plain versions, the deterministic-mode train iteration, and the probes'
+kernels (the gather and the static and loaded trip-count sums).
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so on a GPU host without JAX it runs with
@@ -18,6 +19,7 @@ from lcgan_torch.ops.grid_sample import (
     grid_sample_bicubic_plain_backward,
     identity_like_coordinates,
 )
+from lcgan_torch.tools import dyn_trip_probe, gather_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -415,3 +417,77 @@ def test_generator_256_small_route_launches(dev):
     torch.cuda.synchronize()
     assert (warp.warp_fwd_small.launches - before[0], warp.warp_fwd.launches - before[1]) == (4, 2)
     assert out.shape == (2, 3, 256, 256) and torch.isfinite(out.float()).all()
+
+
+# ----------------------------------------------------------------------------
+# the probes' kernels (lcgan_torch.tools): csrc/gather_probe.cu and
+# csrc/dyn_trip_probe.cu
+# ----------------------------------------------------------------------------
+
+
+def gather_indices(kind, r, shape):
+    if kind == "random":
+        return torch.randint(0, r, shape, generator=torch.Generator().manual_seed(1))
+    return torch.full(shape, 0 if kind == "zeros" else r - 1)
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "last"])
+@pytest.mark.parametrize("r,c,m", [(256, 128, 256), (40, 64, 33), (384, 32, 1)])
+def test_gather_probe_matches_plain(r, c, m, kind, dev):
+    x = torch.randn((r, c), generator=torch.Generator().manual_seed(0)).to(dev)
+    idx = gather_indices(kind, r, (m, c)).to(dev, torch.int32)
+    before = gather_probe.gather_probe.launches
+    out = gather_probe.gather_probe(x, idx)
+    torch.cuda.synchronize()
+    assert gather_probe.gather_probe.launches == before + 1
+    assert torch.equal(out, gather_probe.take_along_rows_plain(x, idx))  # a gather: exact
+
+
+def test_gather_probe_refuses(dev):
+    x = torch.zeros((256, 128), device=dev)
+    idx = torch.zeros((256, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        gather_probe.gather_probe(x, idx.long())
+    with pytest.raises(ValueError, match="multiple of 32"):
+        gather_probe.gather_probe(x[:, :40].contiguous(), idx[:, :40].contiguous())
+    with pytest.raises(ValueError, match="1-384 rows"):
+        gather_probe.gather_probe(torch.zeros((385, 128), device=dev), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_probe.gather_probe(x.t().contiguous().t(), idx)
+
+
+def packs_on(dev, packs=16):
+    g = torch.Generator().manual_seed(0)
+    return torch.randn((packs, 256, 256), generator=g).to(dev), torch.randn((256, 256), generator=g).to(dev)
+
+
+@pytest.mark.parametrize("n", [16, 8, 1, 0])
+def test_dyn_trip_matches_fp64_and_static_bitwise(n, dev):
+    x, w = packs_on(dev)
+    before = (dyn_trip_probe.dyn_trip_static.launches, dyn_trip_probe.dyn_trip_dyn.launches)
+    dyn = dyn_trip_probe.dyn_trip_dyn(torch.tensor([n], dtype=torch.int32, device=dev), x, w)
+    ref = (x[:n].double() @ w.double()).sum(0)
+    # fp32 fused multiply-adds over n·256 products against fp64: 1e-5 of the output's scale
+    assert (dyn.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    plain = dyn_trip_probe.packed_sum_plain(x, w, n)
+    assert (plain.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    if n in dyn_trip_probe.STATIC_COUNTS:
+        assert torch.equal(dyn_trip_probe.dyn_trip_static(x, w, n), dyn)  # one body
+    torch.cuda.synchronize()
+    after = (dyn_trip_probe.dyn_trip_static.launches, dyn_trip_probe.dyn_trip_dyn.launches)
+    assert after == (before[0] + (n in dyn_trip_probe.STATIC_COUNTS), before[1] + 1)
+
+
+def test_dyn_trip_clamps_and_refuses(dev):
+    x, w = packs_on(dev, packs=4)
+    full = dyn_trip_probe.dyn_trip_static(x, w, 4)
+    assert torch.equal(dyn_trip_probe.dyn_trip_dyn(torch.tensor([99], dtype=torch.int32, device=dev), x, w), full)
+    assert torch.count_nonzero(dyn_trip_probe.dyn_trip_dyn(torch.tensor([-3], dtype=torch.int32, device=dev), x, w)) == 0
+    with pytest.raises(ValueError, match="built for counts"):
+        dyn_trip_probe.dyn_trip_static(x, w, 3)
+    with pytest.raises(ValueError, match="built for counts"):
+        dyn_trip_probe.dyn_trip_static(x, w, 8)  # more than x's packs
+    with pytest.raises(ValueError, match="int32"):
+        dyn_trip_probe.dyn_trip_dyn(torch.tensor([4], device=dev), x, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        dyn_trip_probe.dyn_trip_static(x[:, :, :128], w, 4)
