@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (lcgan_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-backward [ROOT]  # only K2's and K3's times, of the lcgan_torch under ROOT
 
 1. Builds every CUDA kernel of the port from lcgan_torch/ops/csrc with nvcc
    for sm_90a, one nvcc per source, in parallel: warp_fwd, warp_dgrid,
@@ -12,8 +13,11 @@
    gradient's magnitude where it exceeds 1: the gradients sum up to C·16
    products in another order) and bf16 (at most one bf16 ulp of the output
    scale: both round the same fp32 sum once), for flows at the tanh bound
-   (0.1) and at the trained magnitude (0.03); warp_dx_scatter (the dx of
-   the narrow maps, C < 128) also at a flow far beyond the bound (0.6). The
+   (0.1) and at the trained magnitude (0.03); warp_dgrid, warp_dx and
+   warp_dx_scatter (the dx of the narrow maps, C < 128) also at a flow far
+   beyond the bound (0.6), warp_dgrid also at the 512² recipe's top block
+   (512²·C64), and warp_dgrid and warp_dx with one pixel thrown across the
+   map among near ones and (warp_dx) every pixel on one spot. The
    error against torch's own op (F.grid_sample,
    aten.grid_sampler_2d_backward) is printed beside it. The three small-map
    kernels are held the same way at the 8²-64² maps of the 256² recipe
@@ -26,7 +30,11 @@
    yardsticks; the port never calls them) with CUDA events at the six warp
    shapes of one 256² batch of 8 (the forward in bf16, as generated, with
    F.grid_sample on an fp32 copy since it takes no bf16 features with an fp32
-   grid; the gradients on fp32 features), and warp_dx_scatter beside
+   grid; the gradients on fp32 features, and per shape in fp32 and bf16,
+   the path's type, at flows 0.1 and 0.03, with the wrapper's host time per
+   call, warp_dgrid also at the 512² recipe's top block, 512²·C64; the same
+   function times another checkout's kernels with --time-backward ROOT),
+   and warp_dx_scatter beside
    warp_dx at the narrow maps of the 512² and 1024² recipes (512²c64 B=8,
    1024²c32 B=4; fp32 and bf16; flows 0.1 and 0.03), beside the bound: the
    larger of bytes over the card's memory rate and flops over its fp32 rate.
@@ -49,9 +57,10 @@
    other leaf moved. Then times each variant alone (min of 3, a per-layer
    figure), and the reference's 8-iteration mix (4 even, 1 odd + R1, 3 odd)
    through train_iteration as MIX_WINDOWS synchronized windows, printing all
-   the images over all the time (images/s). Then it runs four epochs at the
-   dryrun width in fp32 on the card and on the port's CPU path, which must
-   agree.
+   the images over all the time (images/s). Then `--warp_impl none` (the
+   diagnostic ablation) must launch no warp kernel in a forward and backward
+   of the flagship generator, and four epochs at the dryrun width in fp32 on
+   the card and on the port's CPU path must agree.
 6. Drives the train phase, the main path of this slice: `python -m
    lcgan_torch.cli --phase train` at the reference's 512² recipe (base_nf 64,
    max_nf 512, latents 64/512, bf16, batch 8, freezeD_layer 4) on a seeded
@@ -64,7 +73,8 @@
    fake_image_generation must read the checkpoint. Then: the 8-iteration
    mix fed by the port's own pipeline (MIX_WINDOWS_512 windows, images/s and
    peak memory), an even step with and without deterministic algorithms,
-   an even-step profile, bit-exact resume at 512² in a fresh process, and
+   an even-step profile (warp_dgrid's and warp_dx's device ms by name),
+   bit-exact resume at 512² in a fresh process, and
    the training monitor once at full width (num_explore 2).
 7. Drives the small-map route, the main path of this slice: `python -m
    lcgan_torch.cli --phase train` at the flagship 256² recipe with
@@ -126,7 +136,6 @@ CARD_RATES = [
 
 # (B, C, H) of the six warps of one 256² generated batch, block 0 to 5
 MAIN_PATH_WARPS = [(8, 512, 8), (8, 512, 16), (8, 512, 32), (8, 512, 64), (8, 256, 128), (8, 128, 256)]
-CHECK_SHAPES = [(8, 512, 8), (8, 512, 64), (8, 256, 128), (8, 128, 256)]
 FLOWS = [0.1, 0.03]
 FP32_TOL = 1e-5
 MIX_WINDOWS = 5  # timed passes over the training schedule's 8-iteration mix
@@ -174,10 +183,10 @@ def warp_inputs(b, c, h, s, dtype, seed=0):
 
     from lcgan_torch.ops.grid_sample import identity_like_coordinates
 
-    g = torch.Generator().manual_seed(seed)
-    x = torch.randn((b, c, h, h), generator=g).to("cuda", dtype).contiguous(memory_format=torch.channels_last)
-    flow = torch.rand((b, h, h, 2), generator=g) * 2 - 1
-    grid = (identity_like_coordinates(b, h, h) + flow * s).to("cuda").contiguous()
+    g = torch.Generator("cuda").manual_seed(seed)  # made on the card: the largest inputs hold 134 M values
+    x = torch.randn((b, c, h, h), generator=g, device="cuda").to(dtype).contiguous(memory_format=torch.channels_last)
+    flow = torch.rand((b, h, h, 2), generator=g, device="cuda") * 2 - 1
+    grid = (identity_like_coordinates(b, h, h, device="cuda") + flow * s).contiguous()
     return x, grid
 
 
@@ -236,7 +245,7 @@ def check_warp_kernel() -> float:
     from lcgan_torch.ops.warp import warp_fwd
 
     worst = 0.0
-    for b, c, h in CHECK_SHAPES:
+    for b, c, h in MAIN_PATH_WARPS:
         for dtype in (torch.float32, torch.bfloat16):
             for s in FLOWS:
                 x, grid = warp_inputs(b, c, h, s, dtype)
@@ -310,8 +319,8 @@ def time_warp_kernel(bw: float, flops: float) -> dict:
 def cotangent_like(x, seed=1):
     import torch
 
-    g = torch.Generator().manual_seed(seed)
-    return torch.randn(x.shape, generator=g).to(x.device, x.dtype).contiguous(memory_format=torch.channels_last)
+    g = torch.Generator(x.device).manual_seed(seed)
+    return torch.randn(x.shape, generator=g, device=x.device).to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
 def library_backward(x, grid, g, mask):
@@ -326,26 +335,31 @@ def fp32_tol(ref) -> float:
 
 
 def check_backward_kernels() -> dict:
-    """warp_dgrid and warp_dx vs the plain backward at the main path's shapes,
-    and their determinism; returns each kernel's largest fp32 error."""
+    """warp_dgrid and warp_dx vs the plain backward at the main path's shapes
+    (warp_dgrid also at the 512² recipe's top block, 512²·C64, whose dx is
+    warp_dx_scatter's) for flows up to far beyond the tanh bound, one far
+    pixel among near ones, a grid that gathers every pixel onto one spot
+    (warp_dx), and their determinism; returns each kernel's largest fp32
+    error."""
     import torch
 
     from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain_backward
     from lcgan_torch.ops.warp import warp_dgrid, warp_dx
 
     worst = dict(warp_dgrid=0.0, warp_dx=0.0)
-    for b, c, h in CHECK_SHAPES:
+    for b, c, h in MAIN_PATH_WARPS + SCATTER_SHAPES[:1]:
+        names = ("warp_dgrid", "warp_dx") if c >= 128 else ("warp_dgrid",)  # C < 128: warp_dx_scatter's dx
         for dtype in (torch.float32, torch.bfloat16):
-            for s in FLOWS:
+            for s in SCATTER_FLOWS:
                 x, grid = warp_inputs(b, c, h, s, dtype)
                 g = cotangent_like(x)
-                got = dict(warp_dgrid=warp_dgrid(x, grid, g), warp_dx=warp_dx(grid, g))
+                got = dict(warp_dgrid=warp_dgrid(x, grid, g), warp_dx=warp_dx(grid, g) if "warp_dx" in names else None)
                 torch.cuda.synchronize()
                 ref_dx, ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
                 lib_dx, lib_dgrid = library_backward(x, grid, g, [True, True])
                 ref = dict(warp_dgrid=ref_dgrid, warp_dx=ref_dx)
                 lib = dict(warp_dgrid=lib_dgrid, warp_dx=lib_dx)
-                for name in ("warp_dgrid", "warp_dx"):
+                for name in names:
                     out, want = got[name].float(), ref[name].float()
                     err = (out - want).abs().max().item()
                     lib_err = (out - lib[name].float()).abs().max().item()
@@ -361,7 +375,7 @@ def check_backward_kernels() -> dict:
                         check(err <= ulp, f"{tag}: max_abs_err {err:.3g} (tol 1 bf16 ulp = {ulp:.3g}); "
                                           f"vs aten backward {lib_err:.3g}")
                 del x, grid, g, got, ref, lib, ref_dx, ref_dgrid, lib_dx, lib_dgrid
-    for b, c, h in (CHECK_SHAPES[1], CHECK_SHAPES[-1]):
+    for b, c, h in (MAIN_PATH_WARPS[0], MAIN_PATH_WARPS[3], MAIN_PATH_WARPS[-1]):
         for dtype in (torch.float32, torch.bfloat16):
             x, grid = warp_inputs(b, c, h, 0.1, dtype, seed=2)
             g = cotangent_like(x, seed=3)
@@ -370,13 +384,39 @@ def check_backward_kernels() -> dict:
             check(same_dgrid and same_dx, f"determinism {b}x{c}x{h}x{h} {str(dtype)[6:]}: "
                                           f"warp_dgrid bitwise equal {same_dgrid}, warp_dx bitwise equal {same_dx}")
             del x, grid, g
+    # one pixel thrown across the map among near ones (s = 0.03): it widens only
+    # the windows its own row reaches; and every pixel on one spot (warp_dx)
+    b, c, h = MAIN_PATH_WARPS[-1]
+    x, grid = warp_inputs(b, c, h, 0.03, torch.float32)
+    grid[3, h // 3, 5] = torch.tensor([0.9, -0.95], device="cuda")
+    g = cotangent_like(x)
+    ref_dx, ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
+    err_dx = (warp_dx(grid, g) - ref_dx).abs().max().item()
+    err_dgrid = (warp_dgrid(x, grid, g) - ref_dgrid).abs().max().item()
+    check(err_dx <= fp32_tol(ref_dx) and err_dgrid <= fp32_tol(ref_dgrid),
+          f"{b}x{c}x{h}x{h} fp32, one pixel thrown across the map: warp_dx max_abs_err {err_dx:.3g} "
+          f"(tol {fp32_tol(ref_dx):.3g}), warp_dgrid {err_dgrid:.3g} (tol {fp32_tol(ref_dgrid):.3g})")
+    grid = torch.full_like(grid, 0.01)  # every pixel samples one spot
+    dx = warp_dx(grid, g)
+    want = grid_sample_bicubic_plain_backward(x, grid, g)[0]
+    err = (dx - want).abs().max().item()
+    same = torch.equal(dx, warp_dx(grid, g))
+    check(err <= fp32_tol(want) and same, f"warp_dx {b}x{c}x{h}x{h} fp32, every pixel on one spot: "
+                                          f"max_abs_err {err:.3g} (tol {fp32_tol(want):.3g}), bitwise repeatable {same}")
+    del x, grid, g, dx, want, ref_dx, ref_dgrid
     return worst
 
 
-def time_backward_kernels(bw: float, flops: float) -> dict:
-    """K2 and K3, the plain backward (which computes both) and aten's backward
-    (one output each), summed over the six warps of one batch of 8 on fp32
-    features, at the tanh-bound flow (0.1)."""
+def time_backward_kernels(bw: float, flops: float):
+    """K2 and K3 at the training paths' shapes: the six C >= 128 warps of a
+    batch of 8 (the 256² recipe's; the 512² recipe's are the same) for both,
+    and the 512² recipe's top block (512²·C64, whose dx is warp_dx_scatter's)
+    for warp_dgrid; fp32 and bf16 (the path's type), flows 0.1 (the tanh
+    bound) and 0.03 (the trained magnitude), each the lower of two runs of 20
+    calls. At fp32 and 0.1, beside the plain backward (which computes both)
+    and aten's backward (one output each), in turns K, L, L, K; in bf16 the
+    wrapper's host time per call. Returns the fp32 sums over the six warps at
+    0.1 (the kernels line's figures) and the per-shape rows."""
     import torch
 
     from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain_backward
@@ -384,54 +424,73 @@ def time_backward_kernels(bw: float, flops: float) -> dict:
 
     names = ("warp_dgrid", "warp_dx")
     total = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for n in names}
+    bf16 = {n: dict(ms=0.0, bound_ms=0.0) for n in names}
     bound_by = {n: set() for n in names}
-    for b, c, h in MAIN_PATH_WARPS:
-        x, grid = warp_inputs(b, c, h, 0.1, torch.float32)
-        g = cotangent_like(x)
-        xb, gb = x.bfloat16().contiguous(memory_format=torch.channels_last), g.bfloat16().contiguous(memory_format=torch.channels_last)
-        calls = dict(
-            warp_dgrid=(lambda: warp_dgrid(x, grid, g), lambda: library_backward(x, grid, g, [False, True]),
-                        lambda: warp_dgrid(xb, grid, gb)),
-            warp_dx=(lambda: warp_dx(grid, g), lambda: library_backward(x, grid, g, [True, False]),
-                     lambda: warp_dx(grid, gb)),
-        )
-        p1 = cuda_ms(lambda: grid_sample_bicubic_plain_backward(x, grid, g), 3)
-        n_out, es = b * h * h, 4
+    rows = []
+
+    def work(name, n_out, c, es):  # (bytes: each input read once, each output written once; flops)
         grid_bytes = n_out * 2 * 4
-        work = dict(  # (bytes: each input read once, each output written once; flops)
-            warp_dgrid=(2 * n_out * c * es + 2 * grid_bytes, 64 * c * n_out),  # x, g, grid; dgrid
-            warp_dx=(2 * n_out * c * es + grid_bytes, 32 * c * n_out),  # g, grid; dx
-        )
-        for name in names:
-            kernel, library, bf16_kernel = calls[name]
-            # turns K, L, L, K; the lower of each pair
-            k1 = cuda_ms(kernel)
-            l1 = cuda_ms(library)
-            l2 = cuda_ms(library)
-            k2 = cuda_ms(kernel)
-            kb = cuda_ms(bf16_kernel)
-            nbytes, nflops = work[name]
-            bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
-            bound_by[name].add("bytes" if bytes_ms >= flops_ms else "operations")
-            row = dict(ms=min(k1, k2), plain_ms=p1, library_ms=min(l1, l2), bound_ms=max(bytes_ms, flops_ms))
-            for k in row:
-                total[name][k] += row[k]
-            print(
-                f"time {name} {b}x{c}x{h}x{h} fp32: kernel {row['ms']:.4f} ms (bf16 {kb:.4f} ms), "
-                f"plain backward {row['plain_ms']:.4f} ms, aten backward {row['library_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB), kernel at {row['bound_ms'] / row['ms']:.1%} of bound",
-                flush=True,
-            )
-        del x, grid, g, xb, gb, calls
+        if name == "warp_dgrid":
+            return 2 * n_out * c * es + 2 * grid_bytes, 64 * c * n_out  # x, g, grid; dgrid
+        return 2 * n_out * c * es + grid_bytes, 32 * c * n_out  # g, grid; dx
+
+    def host_us(fn):  # the wrapper's enqueue cost
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def call(name, x, grid, g):
+        return (lambda: warp_dgrid(x, grid, g)) if name == "warp_dgrid" else (lambda: warp_dx(grid, g))
+
+    for b, c, h in MAIN_PATH_WARPS + SCATTER_SHAPES[:1]:
+        n_out = b * h * h
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in FLOWS:
+                x, grid = warp_inputs(b, c, h, s, dtype)
+                g = cotangent_like(x)
+                main = dtype == torch.float32 and s == 0.1 and c >= 128
+                if main:
+                    p1 = cuda_ms(lambda: grid_sample_bicubic_plain_backward(x, grid, g), 3)
+                for name in names if c >= 128 else ("warp_dgrid",):
+                    kernel = call(name, x, grid, g)
+                    nbytes, nflops = work(name, n_out, c, x.element_size())
+                    bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
+                    bound = max(bytes_ms, flops_ms)
+                    line = f"time {name} {b}x{c}x{h}x{h} {str(dtype)[6:]} s={s}: kernel "
+                    if main:
+                        library = lambda: library_backward(x, grid, g, [name == "warp_dx", name == "warp_dgrid"])
+                        k1, l1, l2, k2 = cuda_ms(kernel), cuda_ms(library), cuda_ms(library), cuda_ms(kernel)
+                        ms = min(k1, k2)
+                        bound_by[name].add("bytes" if bytes_ms >= flops_ms else "operations")
+                        for k, v in dict(ms=ms, plain_ms=p1, library_ms=min(l1, l2), bound_ms=bound).items():
+                            total[name][k] += v
+                        line += (f"{ms:.4f} ms, plain backward {p1:.4f} ms, aten backward {min(l1, l2):.4f} ms, "
+                                 f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB)")
+                    else:
+                        ms = min(cuda_ms(kernel), cuda_ms(kernel))
+                        line += f"{ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB)"
+                    if dtype == torch.bfloat16 and s == 0.1:
+                        if c >= 128:
+                            bf16[name]["ms"] += ms
+                            bf16[name]["bound_ms"] += bound
+                        line += f"; wrapper host cost {host_us(kernel):.1f} us per call"
+                    rows.append(dict(kernel=name, b=b, c=c, h=h, dtype=str(dtype)[6:], s=s, ms=ms))
+                    print(f"{line}, kernel at {bound / ms:.1%} of bound", flush=True)
+                del x, grid, g
     for name in names:
         t = total[name]
         t["bound_by"] = "bytes" if bound_by[name] == {"bytes"} else "operations"
         print(
-            f"time {name} per batch of 8 (6 warps, fp32): kernel {t['ms']:.4f} ms, plain backward {t['plain_ms']:.4f} ms, "
-            f"aten backward {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms",
+            f"time {name} per batch of 8 (6 warps, fp32, s=0.1): kernel {t['ms']:.4f} ms, plain backward {t['plain_ms']:.4f} ms, "
+            f"aten backward {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; in bf16: kernel {bf16[name]['ms']:.4f} ms, "
+            f"bound {bf16[name]['bound_ms']:.4f} ms",
             flush=True,
         )
-    return total
+    return total, rows
 
 
 def profile_forward(fn, iters: int = 5, top: int = 12, what: str = "forward") -> None:
@@ -464,6 +523,10 @@ def profile_forward(fn, iters: int = 5, top: int = 12, what: str = "forward") ->
             print(f"  {ms:8.3f} ms {ms / busy:6.1%} x{count:<3d} {key[:110]}")
     warp_ms = sum(ms for key, ms, _ in rows if re.search(r"\bwarp_\w*kernel", key))
     print(f"  the port's warp kernels: {warp_ms:.3f} ms = {warp_ms / busy:.1%} of the device time", flush=True)
+    for label, pattern in (("warp_dgrid", r"\bwarp_dgrid_kernel"), ("warp_dx", r"\bwarp_dx_(rows_)?kernel")):
+        ms = sum(m for key, m, _ in rows if re.search(pattern, key))
+        launches = sum(n for key, _, n in rows if re.search(pattern, key))
+        print(f"  {label} kernels: {ms:.3f} ms device time per {what} ({launches} launches)", flush=True)
 
 
 def run_generation_path() -> int:
@@ -649,6 +712,28 @@ def run_training_path() -> None:
                     iters=2, top=16, what="even train step")
     del state, trainer, batch, initial, after_epoch1, final_d
     torch.cuda.empty_cache()
+
+
+def check_none_route() -> None:
+    """--warp_impl none, the JAX package's diagnostic ablation: the flagship
+    256² generator (bf16, batch 2) forward and backward on the card, counts
+    set to 0 just before and read just after: no warp kernel runs."""
+    import torch
+
+    from lcgan_torch.models.generator import Generator
+
+    gen = Generator(img_resolution=256, base_nf=128, max_nf=512, warp_impl="none", dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(0)).to("cuda", memory_format=torch.channels_last)
+    z = torch.randn((2, 64), generator=torch.Generator().manual_seed(1)).cuda()
+    reset_launches()
+    out = gen(z, z)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(not any(launches.values()) and bool(torch.isfinite(out.float()).all()),
+          f"--warp_impl none: generator forward and backward at 256², output {tuple(out.shape)} finite, "
+          f"warp kernel launches {launches} (expect all 0)")
+    del gen, out
 
 
 def check_training_card_vs_cpu() -> None:
@@ -1472,6 +1557,27 @@ def run_probe_entry_points() -> dict:
     return launches
 
 
+def time_backward(root: str) -> int:
+    """``python3 chip_smoke.py --time-backward ROOT``: ``time_backward_kernels``
+    on the lcgan_torch under ROOT, printed as one JSON line of per-shape
+    rows. Run it on two checkouts in turns, each in its own process, to
+    compare two versions of the kernels on one card."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import lcgan_torch
+    from lcgan_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    name = torch.cuda.get_device_name(0)
+    _build.build(["warp_dgrid", "warp_dx"])
+    _, rows = time_backward_kernels(*card_rates(name))
+    print(json.dumps({"time_backward": os.path.dirname(lcgan_torch.__file__), "device": name, "rows": rows}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1494,10 +1600,11 @@ def main() -> int:
     build_kernels()
     worst = dict(warp_fwd=check_warp_kernel(), **check_backward_kernels(), warp_dx_scatter=check_dx_scatter(),
                  **check_small_kernels())
-    times = dict(warp_fwd=time_warp_kernel(bw, flops), **time_backward_kernels(bw, flops),
+    times = dict(warp_fwd=time_warp_kernel(bw, flops), **time_backward_kernels(bw, flops)[0],
                  warp_dx_scatter=time_dx_scatter(bw, flops), **time_small_kernels(bw, flops))
     run_generation_path()
     run_training_path()
+    check_none_route()
     check_training_card_vs_cpu()
     with tempfile.TemporaryDirectory(prefix="lcgan_smoke_512_") as tmp:
         data = os.path.join(tmp, "data")
@@ -1555,4 +1662,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-worker"]:  # check_resume_512's fresh process
         sys.exit(resume_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
+    if sys.argv[1:2] == ["--time-backward"]:
+        sys.exit(time_backward(sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(os.path.abspath(__file__))))
     sys.exit(main())

@@ -124,8 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "pallas", "banded", "none"],
                    help="bicubic-warp route: auto/pallas as the JAX package routes its Pallas "
                         "kernels (on the card, maps of at most 64² that its rule sends to the "
-                        "small-map kernels run the small-map CUDA kernels); banded and none keep "
-                        "the general CUDA kernels in the port")
+                        "small-map kernels run the small-map CUDA kernels); banded keeps the "
+                        "general CUDA kernels in the port; none: skip the warp (diagnostic "
+                        "ablations only, as in the JAX package)")
     p.add_argument("--warp_pallas_min_res", type=int, default=128,
                    help="smallest map that auto routes to the Pallas kernels (the port: to the "
                         "small-map CUDA kernels where they apply, e.g. 8 for the 8²-64² blocks)")

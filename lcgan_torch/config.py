@@ -7,7 +7,8 @@ written by either package reloads in the other. The one new field is
 block's warp route on the card as they pick the JAX package's (the
 small-map kernels where its Pallas entry would take them, else the general
 kernels; ``ops.warp.small_route``); on the CPU the warp is the plain
-version either way. The other JAX backend knobs (``warp_adaptive_band``,
+version either way. ``warp_impl`` "none" is the JAX package's diagnostic
+ablation: the synthesis blocks skip the warp. The other JAX backend knobs (``warp_adaptive_band``,
 ``distributed``, ``profile_dir``, the remat switches) are kept only so that
 ``args.txt`` round-trips.
 """

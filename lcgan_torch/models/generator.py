@@ -14,6 +14,8 @@ Every warp goes through ``ops.warp.grid_sample_bicubic``: the plain version
 on the CPU; on the card the general CUDA kernels, or the small-map ones
 where the JAX generator would take its small-map Pallas kernels
 (``warp_impl``, ``warp_pallas_min_res``; ``ops.warp.small_route``).
+``warp_impl="none"`` skips the warp, as the JAX block does: the block
+returns its features unwarped and launches no warp kernel.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ class SynthesisBlock(nn.Module):
         super().__init__()
         self.max_flow_scale = max_flow_scale
         self.dtype = dtype
+        self.warp_impl = warp_impl  # "none": no warp at all (the JAX package's diagnostic ablation)
         # the warp's route on the card, static per block (as the JAX block's)
         self.small_warp = small_route(warp_impl, warp_pallas_min_res, resolution, resolution, features, max_flow_scale)
         kw = dict(dtype=dtype, generator=generator)
@@ -81,6 +84,8 @@ class SynthesisBlock(nn.Module):
         y = self.modulated_conv1(y, a_latents[:, 1])
         y = leaky_relu(y, 0.2)
         y = skip + y
+        if self.warp_impl == "none":  # the flow is computed and dropped, as the JAX block does
+            return y.to(self.dtype)
 
         # feature warping (custom_layers.py:162-165), sample coordinates in fp32
         b, _, h, w = y.shape

@@ -54,7 +54,6 @@ _SIGNATURES = {
     "warp_dgrid_small": ("lcgan_warp_dgrid_small", [_PTR] * 5 + [_INT] * 9 + [_PTR]),
     "warp_dx_small": ("lcgan_warp_dx_small", [_PTR] * 3 + [_INT] * 7 + [_PTR]),
 }
-_DX_SCRATCH = 128  # fp32 partial maxima of warp_dx's window pass: kDispBlocks in csrc/warp_dx.cu
 _DX_SPLIT_C = 128  # dx kernel by channel count, as _vjp_bwd splits it (lcgan_tpu/ops/warp_pallas.py)
 _SCAN_TILE = 1024  # counts scanned per block: kScanTile in csrc/warp_dx_scatter.cu
 _SMALL_MAX = 64  # the small-map kernels take maps of at most 64²
@@ -123,8 +122,9 @@ def small_route(warp_impl: str, warp_pallas_min_res: int, h: int, w: int, c: int
     """The synthesis block's route: small exactly where the JAX generator
     would call its Pallas entry (``warp_impl`` "pallas", or "auto" at maps of
     ``warp_pallas_min_res`` and up, where the card stands in for the TPU) and
-    that entry would take its small-map kernels. "banded" and "none" keep the
-    general route."""
+    that entry would take its small-map kernels. "banded" keeps the general
+    route; under "none", the JAX package's diagnostic ablation, the synthesis
+    block does not warp at all, so the route is never used."""
     pallas = warp_impl == "pallas" or (warp_impl == "auto" and h >= warp_pallas_min_res)
     return pallas and use_small(h, w, c, max_warp_displacement(h, max_flow_scale))
 
@@ -220,8 +220,9 @@ def _check_dx_args(name: str, grid: torch.Tensor, g: torch.Tensor) -> None:
 
 
 def warp_dx(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA feature-gradient kernels (the window pass and the
-    gather). Counts its launches in ``warp_dx.launches``.
+    """Launch the CUDA feature-gradient kernels (the per-row window pass, on
+    maps of more than 1024 pixels, and the tiled gather). Counts its
+    launches in ``warp_dx.launches``.
 
     grid: (B, H, W, 2) fp32, contiguous; g: the cotangent (B, C, H, W),
     channels_last, fp32 or bf16, on the grid's map size. Returns dx
@@ -234,9 +235,9 @@ def warp_dx(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if g.numel() == 0:
         return dx
     fn = _fn("warp_dx")
-    partial = torch.empty(_DX_SCRATCH, dtype=torch.float32, device=g.device)
+    rows = torch.empty((b * h, 4), dtype=torch.int32, device=g.device)  # each output row's window
     with torch.cuda.device(g.device):
-        rc = fn(grid.data_ptr(), g.data_ptr(), partial.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype], _vec(g, dx),
+        rc = fn(grid.data_ptr(), g.data_ptr(), rows.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype], _vec(g, dx),
                 b, c, h, w, _stream(g))
     _build.raise_on(rc, "warp_dx")
     warp_dx.launches += 1

@@ -145,6 +145,80 @@ def test_backward_far_grid_is_zero(dev):
     assert torch.count_nonzero(warp.warp_dx(far, g)) == 0
 
 
+# (b, c, h, w) at the edges of the backward kernels' tiles (warp_dgrid 8 x 8
+# output pixels, warp_dx 16 x 8 input pixels): maps that are no multiple of
+# the tile, the scalar path (C = 5), C = 64 (the 512² recipe's top block; warp_dx
+# called directly) and C = 256; and at the edge of warp_dx's two candidate
+# modes (every pixel of the image up to 1024 pixels, else the row pass's
+# windows): 32², 32 x 33, and 5 rows wider than a warp
+TILE_EDGE_SHAPES = [(2, 128, 12, 12), (1, 128, 40, 40), (2, 5, 12, 12), (1, 5, 40, 40), (2, 64, 40, 40),
+                    (1, 256, 24, 40), (3, 128, 32, 32), (1, 128, 32, 33), (2, 256, 5, 70)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [0.1, 0.03, 0.6])
+@pytest.mark.parametrize("shape", TILE_EDGE_SHAPES)
+def test_backward_kernels_at_tile_edges(shape, s, dtype, dev):
+    x, grid = case(*shape, s, dtype, dev)
+    g = cotangent(x)
+    dgrid = warp.warp_dgrid(x, grid, g)
+    dx = warp.warp_dx(grid, g)
+    ref_dx, ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
+    assert dgrid.dtype == torch.float32 and (dgrid - ref_dgrid).abs().max().item() <= fp32_tol(ref_dgrid)
+    assert_dx_matches_plain(dx, ref_dx)
+    assert torch.equal(dgrid, warp.warp_dgrid(x, grid, g)) and torch.equal(dx, warp.warp_dx(grid, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", [(64, 48), (16, 24)])
+def test_backward_kernels_one_far_pixel(h, w, dtype, dev):
+    """One pixel displaced across the map while the rest stay near: it
+    widens only the windows its own row reaches (the row pass at 64 x 48;
+    at 16 x 24 every pixel is a candidate), and stays exact."""
+    x, grid = case(2, 128, h, w, 0.03, dtype, dev)
+    grid[1, h // 3, 7] = torch.tensor([0.9, -0.95], device=dev)
+    grid[0, h - 1, 0] = torch.tensor([-0.7, 0.8], device=dev)
+    g = cotangent(x)
+    ref_dx, ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
+    dx = warp.warp_dx(grid, g)
+    assert_dx_matches_plain(dx, ref_dx)
+    assert (warp.warp_dgrid(x, grid, g) - ref_dgrid).abs().max().item() <= fp32_tol(ref_dgrid)
+    assert torch.equal(dx, warp.warp_dx(grid, g))
+
+
+@pytest.mark.parametrize("c,h", [(128, 32), (256, 40), (128, 16)])
+def test_dx_gathered_grid(c, h, dev):
+    """Every output pixel samples one spot: the tiles there hold more hits
+    than one buffer, and the kernel walks its candidates buffer by buffer."""
+    x, grid = case(2, c, h, h, 0.0, torch.float32, dev)
+    grid = torch.full_like(grid, 0.01)
+    g = cotangent(x)
+    dx = warp.warp_dx(grid, g)
+    assert_dx_matches_plain(dx, grid_sample_bicubic_plain_backward(x, grid, g)[0])
+    assert torch.equal(dx, warp.warp_dx(grid, g))
+
+
+def test_generator_none_launches_no_warp(dev):
+    """warp_impl="none" (the diagnostic ablation) skips the warp: its forward
+    and backward on the card launch no warp kernel, and agree with the CPU."""
+    kw = dict(img_resolution=32, geo_noise_dim=8, app_noise_dim=8, geo_latent_dim=8, app_latent_dim=16, base_nf=8,
+              max_nf=16, warp_impl="none")
+    cpu = Generator(**kw, generator=torch.Generator().manual_seed(0)).to(memory_format=torch.channels_last)
+    card = Generator(**kw)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(dev, memory_format=torch.channels_last)
+    z = torch.randn((2, 8), generator=torch.Generator().manual_seed(1))
+    names = ("warp_fwd", "warp_dgrid", "warp_dx", "warp_dx_scatter", "warp_fwd_small", "warp_dgrid_small",
+             "warp_dx_small")
+    before = {n: getattr(warp, n).launches for n in names}
+    out = card(z.to(dev), z.to(dev), w_psi=0.7)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert {n: getattr(warp, n).launches - before[n] for n in names} == dict.fromkeys(names, 0)
+    torch.testing.assert_close(out.detach().cpu(), cpu(z, z, w_psi=0.7).detach(), atol=1e-4, rtol=1e-4)
+    assert card.block_0.flow_layer.modulated_conv.weight.grad is None  # the flow feeds nothing
+
+
 @pytest.mark.parametrize("s", [0.1, 0.03])
 def test_autograd_function_on_card_matches_cpu(s, dev):
     """A CUDA input that requires grad runs the kernels both ways, and the

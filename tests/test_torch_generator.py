@@ -30,9 +30,9 @@ def flax_shapes(cfg: dict, use_noise: bool = False):
     return jax.eval_shape(lambda k: g.init(k, z, z, -1.0), jax.random.PRNGKey(0))
 
 
-def torch_and_flax(cfg: dict, seed: int = 0):
+def torch_and_flax(cfg: dict, seed: int = 0, warp_impl: str = "auto"):
     """A seeded port Generator (with nonzero w-avg stats) and the same weights as Flax trees."""
-    model = Generator(**cfg, generator=torch.Generator().manual_seed(seed))
+    model = Generator(**cfg, warp_impl=warp_impl, generator=torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed)
     for buf in (model.avg_latent1, model.avg_latent2):
         buf.copy_(torch.from_numpy(rng.standard_normal(buf.shape).astype(np.float32)))
@@ -67,17 +67,20 @@ def test_bridge_matches_flax_tree_structure():
 
 
 @pytest.mark.parametrize(
-    "cfg,w_psi",
-    [(DRYRUN, 1.0), (DRYRUN, 0.7), (DRYRUN, -1.0), (AT_128, 0.7)],
-    ids=["32-psi1", "32-psi0.7", "32-psi-1", "128-psi0.7"],
+    "cfg,w_psi,warp_impl",
+    [(DRYRUN, 1.0, "auto"), (DRYRUN, 0.7, "auto"), (DRYRUN, -1.0, "auto"), (AT_128, 0.7, "auto"),
+     (DRYRUN, 0.7, "none")],
+    ids=["32-psi1", "32-psi0.7", "32-psi-1", "128-psi0.7", "32-psi0.7-none"],
 )
-def test_generator_matches_jax(cfg, w_psi):
-    model, params, stats = torch_and_flax(cfg)
+def test_generator_matches_jax(cfg, w_psi, warp_impl):
+    """"none" (the diagnostic ablation) skips the warp on both sides."""
+    model, params, stats = torch_and_flax(cfg, warp_impl=warp_impl)
     rng = np.random.default_rng(2)
     z1 = rng.standard_normal((2, cfg["geo_noise_dim"])).astype(np.float32)
     z2 = rng.standard_normal((2, cfg["app_noise_dim"])).astype(np.float32)
 
-    ref, mut = JaxGenerator(**cfg, warp_impl="banded").apply(
+    jax_impl = "none" if warp_impl == "none" else "banded"
+    ref, mut = JaxGenerator(**cfg, warp_impl=jax_impl).apply(
         {"params": params, "stats": stats}, jnp.asarray(z1), jnp.asarray(z2), w_psi, mutable=["stats"]
     )
     with torch.no_grad():
@@ -115,3 +118,43 @@ def test_bf16_forward_is_finite_and_near_fp32():
     assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
     # bf16 keeps 8 bits: after three blocks of convs the images agree to a few percent of their range
     assert (out.float() - ref).abs().max() <= 0.05 * ref.abs().max()
+
+
+@pytest.mark.parametrize("warp_impl", ["none", "auto"])
+def test_generator_gradients_match_jax(warp_impl):
+    """G's gradients of a sum of the output, as the train step takes them
+    (``train.steps._grads``: zeros for a leaf the loss does not reach),
+    against ``jax.grad`` of the same sum. Under "none" the flow layers feed
+    nothing, so both sides give them zeros."""
+    from lcgan_torch.train.steps import _grads
+
+    model, params, stats = torch_and_flax(DRYRUN, warp_impl=warp_impl)
+    rng = np.random.default_rng(5)
+    z1 = rng.standard_normal((2, DRYRUN["geo_noise_dim"])).astype(np.float32)
+    z2 = rng.standard_normal((2, DRYRUN["app_noise_dim"])).astype(np.float32)
+    jax_gen = JaxGenerator(**DRYRUN, warp_impl="none" if warp_impl == "none" else "banded")
+
+    def total(p):
+        out, _ = jax_gen.apply({"params": p, "stats": stats}, jnp.asarray(z1), jnp.asarray(z2), -1.0,
+                               mutable=["stats"])
+        return out.sum()
+
+    ref = jax.grad(total)(params)
+    names = [n for n, _ in model.named_parameters()]
+    leaves = [p for _, p in model.named_parameters()]
+    out = model.train()(torch.from_numpy(z1), torch.from_numpy(z2), w_psi=-1.0)
+    got, _ = flax_from_generator(dict(zip(names, _grads(out.sum(), leaves))))
+
+    ref_flat = dict(jax.tree_util.tree_leaves_with_path(ref))
+    got_flat = dict(jax.tree_util.tree_leaves_with_path(got))
+    assert ref_flat.keys() == got_flat.keys()
+    flow_leaves = 0
+    for path, want in ref_flat.items():
+        want, have = np.asarray(want), np.asarray(got_flat[path])
+        # fp32 sums over the whole image in other orders: 1e-5 of the leaf's scale
+        np.testing.assert_allclose(have, want, rtol=1e-5, atol=1e-5 * max(1.0, float(np.abs(want).max())),
+                                   err_msg=jax.tree_util.keystr(path))
+        if "flow_layer" in jax.tree_util.keystr(path):
+            flow_leaves += 1
+            assert (not want.any() and not have.any()) == (warp_impl == "none")
+    assert flow_leaves == 2 * model.num_blocks * 2  # modulated_conv and linear, weight and bias, per block

@@ -96,10 +96,22 @@ def test_generator_route_matches_jax(cfg, warp_impl, min_res):
         assert got == ([True] * 4 + [False] * 2 if (warp_impl, min_res) != ("auto", 128) else [False] * 6)
 
 
-def test_banded_and_none_keep_the_general_route():
-    for impl in ("banded", "none"):
-        model = Generator(**DRYRUN, warp_impl=impl, warp_pallas_min_res=8)
-        assert not any(getattr(model, f"block_{i}").small_warp for i in range(model.num_blocks))
+def test_banded_and_none_keep_the_general_route(monkeypatch):
+    """"banded" keeps the general route. "none" takes no route at all: the
+    blocks skip the warp, as the JAX blocks do, so the warp is never called."""
+    from lcgan_torch.models import generator as t_generator
+
+    model = Generator(**DRYRUN, warp_impl="banded", warp_pallas_min_res=8)
+    assert not any(getattr(model, f"block_{i}").small_warp for i in range(model.num_blocks))
+
+    calls = []
+    monkeypatch.setattr(t_generator, "grid_sample_bicubic", lambda *a: calls.append(a) or a[0])
+    z = torch.zeros((2, DRYRUN["geo_noise_dim"]))
+    with torch.no_grad():
+        Generator(**DRYRUN, warp_impl="banded")(z, z, w_psi=0.7)
+        assert len(calls) == model.num_blocks
+        out = Generator(**DRYRUN, warp_impl="none", warp_pallas_min_res=8)(z, z, w_psi=0.7)
+    assert len(calls) == model.num_blocks and torch.isfinite(out).all()
 
 
 # (b, h, w, c) where _use_small holds: one group, and (1, 32, 32, 512) in two
