@@ -1,7 +1,10 @@
 """Smoke run of the PyTorch/CUDA port (lcgan_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --time-backward [ROOT]  # only K2's and K3's times, of the lcgan_torch under ROOT
+    python3 chip_smoke.py --time-kernels warp_fwd,warp_dgrid,warp_dx,warp_dx_scatter,even512 [ROOT]
+        # per-shape times and output hashes of the named kernels of the lcgan_torch under
+        # ROOT (warp_dx_scatter split by launch), and the 512² mix and even-step profile (even512)
+    python3 chip_smoke.py --time-backward [ROOT]  # shorthand for --time-kernels warp_dgrid,warp_dx [ROOT]
 
 1. Builds every CUDA kernel of the port from lcgan_torch/ops/csrc with nvcc
    for sm_90a, one nvcc per source, in parallel: warp_fwd, warp_dgrid,
@@ -17,7 +20,13 @@
    warp_dx_scatter (the dx of the narrow maps, C < 128) also at a flow far
    beyond the bound (0.6), warp_dgrid also at the 512² recipe's top block
    (512²·C64), and warp_dgrid and warp_dx with one pixel thrown across the
-   map among near ones and (warp_dx) every pixel on one spot. The
+   map among near ones and (warp_dx) every pixel on one spot. warp_fwd
+   also at the 512² and 1024² recipes' top blocks, and warp_fwd and
+   warp_dx_scatter on a smooth flow (neighbours move together, as the
+   generator's do), with a pixel thrown across the map, every pixel on one
+   spot and on the scalar path (C = 5); warp_dx_scatter's pile-up against
+   an fp64 oracle, with a limit set between the kernel's error and that of
+   a kernel dropping or doubling one hit. The
    error against torch's own op (F.grid_sample,
    aten.grid_sampler_2d_backward) is printed beside it. The three small-map
    kernels are held the same way at the 8²-64² maps of the 256² recipe
@@ -25,19 +34,22 @@
    flows 0.1, 0.03 and 0.6, and warp_dx_small on a grid that gathers every
    pixel onto one spot. The gradient kernels, called twice on the same
    inputs, must give bitwise-equal outputs.
-3. Times each kernel, its plain version and the one PyTorch call that computes
-   the same function (F.grid_sample and aten.grid_sampler_2d_backward, the
-   yardsticks; the port never calls them) with CUDA events at the six warp
-   shapes of one 256² batch of 8 (the forward in bf16, as generated, with
-   F.grid_sample on an fp32 copy since it takes no bf16 features with an fp32
-   grid; the gradients on fp32 features, and per shape in fp32 and bf16,
-   the path's type, at flows 0.1 and 0.03, with the wrapper's host time per
-   call, warp_dgrid also at the 512² recipe's top block, 512²·C64; the same
-   function times another checkout's kernels with --time-backward ROOT),
-   and warp_dx_scatter beside
-   warp_dx at the narrow maps of the 512² and 1024² recipes (512²c64 B=8,
-   1024²c32 B=4; fp32 and bf16; flows 0.1 and 0.03), beside the bound: the
-   larger of bytes over the card's memory rate and flops over its fp32 rate.
+3. Times the four general kernels per shape with one function (the same as
+   --time-kernels): warp_fwd at the six warp shapes of one 256² batch of 8
+   and the narrow top blocks of the 512² and 1024² recipes (512²c64 B=8,
+   1024²c32 B=4), warp_dgrid and warp_dx at the six warps and 512²c64
+   (warp_dx at 1024²c32 too, the other design for warp_dx_scatter's sum),
+   warp_dx_scatter at the two narrow maps; bf16 and fp32, the iid and the
+   smooth flow, s = 0.1; with CUDA events, beside the bound (the larger of
+   bytes over the card's memory rate and flops over its fp32 rate) and, in
+   bf16, the wrapper's host time per call. At each kernel's kernels-line
+   basis (warp_fwd and warp_dx_scatter bf16, the others fp32; iid flow) also
+   its plain version and the one PyTorch call that computes the same
+   function (F.grid_sample and aten.grid_sampler_2d_backward, the
+   yardsticks, on fp32 copies since F.grid_sample takes no bf16 features
+   with an fp32 grid; the port never calls them). The kernels line sums the
+   six warps for warp_fwd, warp_dgrid and warp_dx, and takes the 512² train
+   path's call (512²c64 B=8) for warp_dx_scatter.
    The small-map kernels likewise at the four small maps (bf16 and fp32,
    s = 0.1), each beside the general kernel at the same call (warp_fwd,
    warp_dgrid, warp_dx) and with the wrapper's host time per call.
@@ -73,7 +85,8 @@
    fake_image_generation must read the checkpoint. Then: the 8-iteration
    mix fed by the port's own pipeline (MIX_WINDOWS_512 windows, images/s and
    peak memory), an even step with and without deterministic algorithms,
-   an even-step profile (warp_dgrid's and warp_dx's device ms by name),
+   an even-step profile (warp_fwd's, warp_dgrid's, warp_dx's and
+   warp_dx_scatter's device ms by name),
    bit-exact resume at 512² in a fresh process, and
    the training monitor once at full width (num_explore 2).
 7. Drives the small-map route, the main path of this slice: `python -m
@@ -143,6 +156,10 @@ MIX_WINDOWS = 5  # timed passes over the training schedule's 8-iteration mix
 # recipe, and of the 1024² one at its per-GPU batch of 4
 SCATTER_SHAPES = [(8, 64, 512), (4, 32, 1024)]
 SCATTER_FLOWS = [0.1, 0.03, 0.6]  # 0.6: far beyond the tanh bound
+# K1 at the six warps of a 256² batch and at the narrow top blocks of the
+# 512² and 1024² recipes
+FWD_SHAPES = MAIN_PATH_WARPS + SCATTER_SHAPES
+FLOW_KINDS = ("iid", "smooth")  # warp_inputs' flows
 MIX_WINDOWS_512 = 3
 GENERAL_KERNELS = ("warp_fwd", "warp_dgrid", "warp_dx", "warp_dx_scatter")
 SMALL_KERNELS = ("warp_fwd_small", "warp_dgrid_small", "warp_dx_small")
@@ -178,15 +195,25 @@ def card_rates(name: str):
     raise SystemExit(f"chip_smoke: no data-sheet rates for {name!r}; add them to CARD_RATES")
 
 
-def warp_inputs(b, c, h, s, dtype, seed=0):
+def warp_inputs(b, c, h, s, dtype, seed=0, flow="iid"):
+    """Features and a grid ``identity + flow · s``. ``flow`` "iid": an
+    independent U(-1, 1) draw per pixel, so neighbouring pixels' taps land up
+    to ±s·W/2 apart; "smooth": U(-1, 1) at 1/16 of the map's size, upsampled
+    bilinearly, so that neighbours move together, as the generator's
+    box-filtered, tanh-bounded flows do."""
     import torch
+    import torch.nn.functional as F
 
     from lcgan_torch.ops.grid_sample import identity_like_coordinates
 
     g = torch.Generator("cuda").manual_seed(seed)  # made on the card: the largest inputs hold 134 M values
     x = torch.randn((b, c, h, h), generator=g, device="cuda").to(dtype).contiguous(memory_format=torch.channels_last)
-    flow = torch.rand((b, h, h, 2), generator=g, device="cuda") * 2 - 1
-    grid = (identity_like_coordinates(b, h, h, device="cuda") + flow * s).contiguous()
+    if flow == "smooth":
+        coarse = torch.rand((b, 2, max(1, h // 16), max(1, h // 16)), generator=g, device="cuda") * 2 - 1
+        d = F.interpolate(coarse, size=(h, h), mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    else:
+        d = torch.rand((b, h, h, 2), generator=g, device="cuda") * 2 - 1
+    grid = (identity_like_coordinates(b, h, h, device="cuda") + d * s).contiguous()
     return x, grid
 
 
@@ -217,6 +244,19 @@ def cuda_ms(fn, iters: int = 20, hold: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, n: int = 50) -> float:
+    """The wrapper's host cost per call (its enqueue), host clock."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def library_grid_sample(x, grid):
     """F.grid_sample takes its grid in the features' dtype, and a bf16 grid
     cannot address a 256² map; so it always gets fp32 features."""
@@ -225,11 +265,13 @@ def library_grid_sample(x, grid):
     return F.grid_sample(x.float(), grid, mode="bicubic", padding_mode="zeros", align_corners=False)
 
 
-def build_kernels() -> None:
+def build_kernels(names=None) -> None:
+    """Builds the named kernels' sources (all by default) and prints ptxas's
+    registers and spills of each."""
     from lcgan_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build(list(KERNELS) + sorted(set(PROBE_SOURCE.values())))
+    reports = _build.build(list(KERNELS) + sorted(set(PROBE_SOURCE.values())) if names is None else names)
     print(f"build: {sorted(reports) or 'already built'} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, report in reports.items():
         for line in report.splitlines():
@@ -237,83 +279,69 @@ def build_kernels() -> None:
                 print(f"  {name}: {line.strip()}")
 
 
-def check_warp_kernel() -> float:
-    """Kernel vs plain at the main path's shapes; returns the largest fp32 error."""
+# (flow kind, s) of the kernels' checks beside SCATTER_FLOWS / FLOWS: the
+# smooth flow at the tanh bound
+FWD_CHECK_FLOWS = [("iid", 0.1), ("iid", 0.03), ("smooth", 0.1)]
+SCALAR_SHAPE = (2, 5, 40)  # (B, C, H): odd C takes the scalar path, on a map of several tiles
+
+
+def check_fwd(tag, x, grid, lib: bool = True) -> float:
+    """One warp_fwd check against the plain version (fp32: 1e-5; bf16: one
+    ulp of the output scale); returns the error."""
     import torch
 
     from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain
+    from lcgan_torch.ops.warp import warp_fwd
+
+    out = warp_fwd(x, grid).float()
+    torch.cuda.synchronize()
+    ref = grid_sample_bicubic_plain(x, grid).float()
+    err = (out - ref).abs().max().item()
+    extra = f"; vs F.grid_sample {(out - library_grid_sample(x, grid).float()).abs().max().item():.3g}" if lib else ""
+    if x.dtype == torch.float32:
+        check(err <= FP32_TOL, f"{tag}: max_abs_err {err:.3g} (tol {FP32_TOL}){extra}")
+    else:
+        ulp = 2.0 ** (math.floor(math.log2(max(ref.abs().max().item(), 1e-30))) - 7)
+        check(err <= ulp, f"{tag}: max_abs_err {err:.3g} (tol 1 bf16 ulp = {ulp:.3g}){extra}")
+    return err
+
+
+def check_warp_kernel() -> float:
+    """Kernel vs plain at the paths' eight shapes (iid flows at 0.1 and 0.03,
+    the smooth flow at 0.1); then at a 64² and the 256² warp (C512 bf16: 4
+    pixels a row tile; C128: 16) one pixel thrown across the map among smooth
+    near ones, every pixel on one spot by the map's corner (taps across the
+    map's edge), and determinism; and the scalar path. Returns the largest
+    fp32 error."""
+    import torch
+
     from lcgan_torch.ops.warp import warp_fwd
 
     worst = 0.0
-    for b, c, h in MAIN_PATH_WARPS:
+    for b, c, h in FWD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            for s in FLOWS:
-                x, grid = warp_inputs(b, c, h, s, dtype)
-                out = warp_fwd(x, grid).float()
-                torch.cuda.synchronize()
-                ref = grid_sample_bicubic_plain(x, grid).float()
-                lib = library_grid_sample(x, grid).float()
-                err = (out - ref).abs().max().item()
-                lib_err = (out - lib).abs().max().item()
-                tag = f"warp_fwd {b}x{c}x{h}x{h} {str(dtype)[6:]} s={s}"
+            for kind, s in FWD_CHECK_FLOWS:
+                x, grid = warp_inputs(b, c, h, s, dtype, flow=kind)
+                err = check_fwd(f"warp_fwd {b}x{c}x{h}x{h} {str(dtype)[6:]} {kind} s={s}", x, grid)
                 if dtype == torch.float32:
                     worst = max(worst, err)
-                    check(err <= FP32_TOL, f"{tag}: max_abs_err {err:.3g} (tol {FP32_TOL}); vs F.grid_sample {lib_err:.3g}")
-                else:
-                    ulp = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
-                    check(err <= ulp, f"{tag}: max_abs_err {err:.3g} (tol 1 bf16 ulp = {ulp:.3g}); vs F.grid_sample {lib_err:.3g}")
-                del x, grid, out, ref, lib
+                del x, grid
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, c, h in (MAIN_PATH_WARPS[3], MAIN_PATH_WARPS[-1]):
+            x, grid = warp_inputs(b, c, h, 0.03, dtype, flow="smooth")
+            grid[3, h // 3, 5] = torch.tensor([0.9, -0.95], device="cuda")
+            tag = f"warp_fwd {b}x{c}x{h}x{h} {str(dtype)[6:]}"
+            check_fwd(f"{tag} smooth s=0.03, one pixel thrown across the map", x, grid, lib=False)
+            same = torch.equal(warp_fwd(x, grid), warp_fwd(x, grid))
+            check(same, f"determinism {tag} smooth: warp_fwd bitwise equal {same}")
+            check_fwd(f"{tag}, every pixel on one spot by the map's corner", x, torch.full_like(grid, -0.99), lib=False)
+            del x, grid
+        for kind in FLOW_KINDS:
+            x, grid = warp_inputs(*SCALAR_SHAPE, 0.1, dtype, flow=kind)
+            check_fwd(f"warp_fwd {'x'.join(map(str, SCALAR_SHAPE))}x{SCALAR_SHAPE[-1]} {str(dtype)[6:]} {kind} s=0.1 "
+                      "(scalar path)", x, grid)
+        del x, grid
     return worst
-
-
-def time_warp_kernel(bw: float, flops: float) -> dict:
-    """Times summed over the six warps of one generated batch (B=8, bf16)."""
-    import torch
-
-    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain
-    from lcgan_torch.ops.warp import warp_fwd
-
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    bound_by = set()
-    for b, c, h in MAIN_PATH_WARPS:
-        x, grid = warp_inputs(b, c, h, 0.1, torch.bfloat16)
-        xf = x.float()  # the library call's input, converted outside the timed region
-        # turns K, P, L, L, P, K; the lower of each pair
-        k1 = cuda_ms(lambda: warp_fwd(x, grid))
-        p1 = cuda_ms(lambda: grid_sample_bicubic_plain(x, grid), 5)
-        l1 = cuda_ms(lambda: library_grid_sample(xf, grid))
-        l2 = cuda_ms(lambda: library_grid_sample(xf, grid))
-        p2 = cuda_ms(lambda: grid_sample_bicubic_plain(x, grid), 5)
-        k2 = cuda_ms(lambda: warp_fwd(x, grid))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            warp_fwd(x, grid)
-        host_us = (time.perf_counter() - t0) / 50 * 1e6  # the wrapper's enqueue cost
-        torch.cuda.synchronize()
-        n_out = b * h * h
-        nbytes = x.numel() * x.element_size() + grid.numel() * 4 + n_out * c * x.element_size()
-        nflops = 32 * c * n_out  # 16 taps, one multiply-add each, per output value
-        bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
-        bound_by.add("bytes" if bytes_ms >= flops_ms else "operations")
-        row = dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=min(l1, l2), bound_ms=max(bytes_ms, flops_ms))
-        for k in total:
-            total[k] += row[k]
-        print(
-            f"time warp_fwd {b}x{c}x{h}x{h} bf16: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"F.grid_sample {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({nbytes / 1e6:.1f} MB), kernel at {row['bound_ms'] / row['ms']:.0%} of bound; "
-            f"wrapper host cost {host_us:.1f} us per call",
-            flush=True,
-        )
-        del x, xf, grid
-    total["bound_by"] = "bytes" if bound_by == {"bytes"} else "operations"
-    print(
-        f"time warp_fwd per generated batch (6 warps): kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
-        f"F.grid_sample {total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms",
-        flush=True,
-    )
-    return total
 
 
 def cotangent_like(x, seed=1):
@@ -407,95 +435,15 @@ def check_backward_kernels() -> dict:
     return worst
 
 
-def time_backward_kernels(bw: float, flops: float):
-    """K2 and K3 at the training paths' shapes: the six C >= 128 warps of a
-    batch of 8 (the 256² recipe's; the 512² recipe's are the same) for both,
-    and the 512² recipe's top block (512²·C64, whose dx is warp_dx_scatter's)
-    for warp_dgrid; fp32 and bf16 (the path's type), flows 0.1 (the tanh
-    bound) and 0.03 (the trained magnitude), each the lower of two runs of 20
-    calls. At fp32 and 0.1, beside the plain backward (which computes both)
-    and aten's backward (one output each), in turns K, L, L, K; in bf16 the
-    wrapper's host time per call. Returns the fp32 sums over the six warps at
-    0.1 (the kernels line's figures) and the per-shape rows."""
-    import torch
-
-    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain_backward
-    from lcgan_torch.ops.warp import warp_dgrid, warp_dx
-
-    names = ("warp_dgrid", "warp_dx")
-    total = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for n in names}
-    bf16 = {n: dict(ms=0.0, bound_ms=0.0) for n in names}
-    bound_by = {n: set() for n in names}
-    rows = []
-
-    def work(name, n_out, c, es):  # (bytes: each input read once, each output written once; flops)
-        grid_bytes = n_out * 2 * 4
-        if name == "warp_dgrid":
-            return 2 * n_out * c * es + 2 * grid_bytes, 64 * c * n_out  # x, g, grid; dgrid
-        return 2 * n_out * c * es + grid_bytes, 32 * c * n_out  # g, grid; dx
-
-    def host_us(fn):  # the wrapper's enqueue cost
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            fn()
-        us = (time.perf_counter() - t0) / 50 * 1e6
-        torch.cuda.synchronize()
-        return us
-
-    def call(name, x, grid, g):
-        return (lambda: warp_dgrid(x, grid, g)) if name == "warp_dgrid" else (lambda: warp_dx(grid, g))
-
-    for b, c, h in MAIN_PATH_WARPS + SCATTER_SHAPES[:1]:
-        n_out = b * h * h
-        for dtype in (torch.float32, torch.bfloat16):
-            for s in FLOWS:
-                x, grid = warp_inputs(b, c, h, s, dtype)
-                g = cotangent_like(x)
-                main = dtype == torch.float32 and s == 0.1 and c >= 128
-                if main:
-                    p1 = cuda_ms(lambda: grid_sample_bicubic_plain_backward(x, grid, g), 3)
-                for name in names if c >= 128 else ("warp_dgrid",):
-                    kernel = call(name, x, grid, g)
-                    nbytes, nflops = work(name, n_out, c, x.element_size())
-                    bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
-                    bound = max(bytes_ms, flops_ms)
-                    line = f"time {name} {b}x{c}x{h}x{h} {str(dtype)[6:]} s={s}: kernel "
-                    if main:
-                        library = lambda: library_backward(x, grid, g, [name == "warp_dx", name == "warp_dgrid"])
-                        k1, l1, l2, k2 = cuda_ms(kernel), cuda_ms(library), cuda_ms(library), cuda_ms(kernel)
-                        ms = min(k1, k2)
-                        bound_by[name].add("bytes" if bytes_ms >= flops_ms else "operations")
-                        for k, v in dict(ms=ms, plain_ms=p1, library_ms=min(l1, l2), bound_ms=bound).items():
-                            total[name][k] += v
-                        line += (f"{ms:.4f} ms, plain backward {p1:.4f} ms, aten backward {min(l1, l2):.4f} ms, "
-                                 f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB)")
-                    else:
-                        ms = min(cuda_ms(kernel), cuda_ms(kernel))
-                        line += f"{ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB)"
-                    if dtype == torch.bfloat16 and s == 0.1:
-                        if c >= 128:
-                            bf16[name]["ms"] += ms
-                            bf16[name]["bound_ms"] += bound
-                        line += f"; wrapper host cost {host_us(kernel):.1f} us per call"
-                    rows.append(dict(kernel=name, b=b, c=c, h=h, dtype=str(dtype)[6:], s=s, ms=ms))
-                    print(f"{line}, kernel at {bound / ms:.1%} of bound", flush=True)
-                del x, grid, g
-    for name in names:
-        t = total[name]
-        t["bound_by"] = "bytes" if bound_by[name] == {"bytes"} else "operations"
-        print(
-            f"time {name} per batch of 8 (6 warps, fp32, s=0.1): kernel {t['ms']:.4f} ms, plain backward {t['plain_ms']:.4f} ms, "
-            f"aten backward {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; in bf16: kernel {bf16[name]['ms']:.4f} ms, "
-            f"bound {bf16[name]['bound_ms']:.4f} ms",
-            flush=True,
-        )
-    return total, rows
+# the general route's warp kernels by their kernel names (K4's memset is not counted)
+WARP_KERNEL_NAMES = (("warp_fwd", r"\bwarp_fwd_kernel"), ("warp_dgrid", r"\bwarp_dgrid_kernel"),
+                     ("warp_dx", r"\bwarp_dx_(rows_)?kernel"), ("warp_dx_scatter", r"\bwarp_dxs_\w*kernel"))
 
 
-def profile_forward(fn, iters: int = 5, top: int = 12, what: str = "forward") -> None:
+def profile_forward(fn, iters: int = 5, top: int = 12, what: str = "forward") -> dict:
     """Device time of ``iters`` calls by kernel (torch.profiler), and the
-    device's idle share of the window's wall time."""
+    device's idle share of the window's wall time. Returns the general
+    route's warp kernels' device ms per call, by kernel, and the device ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -523,10 +471,13 @@ def profile_forward(fn, iters: int = 5, top: int = 12, what: str = "forward") ->
             print(f"  {ms:8.3f} ms {ms / busy:6.1%} x{count:<3d} {key[:110]}")
     warp_ms = sum(ms for key, ms, _ in rows if re.search(r"\bwarp_\w*kernel", key))
     print(f"  the port's warp kernels: {warp_ms:.3f} ms = {warp_ms / busy:.1%} of the device time", flush=True)
-    for label, pattern in (("warp_dgrid", r"\bwarp_dgrid_kernel"), ("warp_dx", r"\bwarp_dx_(rows_)?kernel")):
+    per_kernel = dict(device_ms=busy, idle=1 - busy * iters / wall_ms)
+    for label, pattern in WARP_KERNEL_NAMES:
         ms = sum(m for key, m, _ in rows if re.search(pattern, key))
         launches = sum(n for key, _, n in rows if re.search(pattern, key))
+        per_kernel[f"{label}_ms"] = ms
         print(f"  {label} kernels: {ms:.3f} ms device time per {what} ({launches} launches)", flush=True)
+    return per_kernel
 
 
 def run_generation_path() -> int:
@@ -776,89 +727,332 @@ def check_training_card_vs_cpu() -> None:
           f"worst leaf rel err {leaf_err:.3g} at {where} (tol 1e-3 of the leaf's scale), {len(cpu)} leaves")
 
 
-def check_dx_scatter() -> float:
-    """warp_dx_scatter vs the plain backward at the narrow maps of the 512²
-    and 1024² recipes, for flows up to far beyond the tanh bound, and its
-    determinism; returns the largest fp32 error."""
+def check_dx_one(tag, x, grid, g) -> float:
+    """One warp_dx_scatter check against the plain backward (fp32: 1e-5 x
+    max(1, scale); bf16: one ulp of the scale), with aten's error beside it;
+    returns the error."""
     import torch
 
     from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain_backward
     from lcgan_torch.ops.warp import warp_dx_scatter
 
+    out = warp_dx_scatter(grid, g).float()
+    torch.cuda.synchronize()
+    want = grid_sample_bicubic_plain_backward(x, grid, g)[0].float()
+    lib = library_backward(x, grid, g, [True, False])[0].float()
+    err = (out - want).abs().max().item()
+    lib_err = (out - lib).abs().max().item()
+    if x.dtype == torch.float32:
+        tol = fp32_tol(want)
+        check(err <= tol, f"{tag}: max_abs_err {err:.3g} (tol {tol:.3g} = 1e-5 x max(1, scale)); "
+                          f"vs aten backward {lib_err:.3g}")
+    else:
+        ulp = 2.0 ** (math.floor(math.log2(max(want.abs().max().item(), 1e-30))) - 7)
+        check(err <= ulp, f"{tag}: max_abs_err {err:.3g} (tol 1 bf16 ulp = {ulp:.3g}); vs aten backward {lib_err:.3g}")
+    return err
+
+
+# warp_dx_scatter's limit on the 512² pile-up against the fp64 oracle, from
+# the card's readings (PERF.md, Findings): the kernel's error and the fp32 plain
+# backward's lie below it, a kernel that drops or doubles one hit far above
+PILEUP_TOL = 0.06
+
+
+def check_pileup(tag, x, grid, g) -> None:
+    """warp_dx_scatter on a grid that puts every pixel on one spot: each of
+    the spot's 16 taps sums H·W products. Held against an fp64 oracle (every
+    pixel has the spot's weights, so dX at tap (m, k) is wy[m] wx[k] times
+    the fp64 sum of g over the map): the fp32 plain backward sums in another
+    order and is itself off by about as much as the kernel, more than the
+    other checks' 1e-5 x max(1, scale) at 512². The limit is PILEUP_TOL; the
+    check also shows that a kernel which drops or doubles one hit (the kernel
+    on g with one pixel's row zeroed or doubled) lies above it. Then bitwise
+    repeatability."""
+    import torch
+
+    from lcgan_torch.ops.grid_sample import cubic_weights, grid_sample_bicubic_plain_backward, unnormalize
+    from lcgan_torch.ops.warp import warp_dx_scatter
+
+    b, c, h, w = g.shape
+    dx = warp_dx_scatter(grid, g)
+    fx, fy = unnormalize(grid[0, 0, 0, 0], w), unnormalize(grid[0, 0, 0, 1], h)
+    wx, wy = cubic_weights(fx - torch.floor(fx)), cubic_weights(fy - torch.floor(fy))
+    ix0, iy0 = int(torch.floor(fx)) - 1, int(torch.floor(fy)) - 1
+    sums = g.double().sum((2, 3))
+    want = torch.zeros((b, c, h, w), dtype=torch.float64, device=g.device)
+    for m in range(4):
+        for k in range(4):
+            if 0 <= iy0 + m < h and 0 <= ix0 + k < w:
+                want[:, :, iy0 + m, ix0 + k] += float(wy[m]) * float(wx[k]) * sums
+    err = (dx.double() - want).abs().max().item()
+    plain_err = (grid_sample_bicubic_plain_backward(x, grid, g)[0].double() - want).abs().max().item()
+    one_hit = []
+    for factor in (0.0, 2.0):  # one hit dropped, one hit doubled
+        g1 = g.clone()
+        g1[3, :, h // 3, 5] *= factor
+        one_hit.append((warp_dx_scatter(grid, g1).double() - want).abs().max().item())
+    same = torch.equal(dx, warp_dx_scatter(grid, g))
+    check(err <= PILEUP_TOL < min(one_hit) and same,
+          f"{tag}, every pixel on one spot: max_abs_err {err:.4g} against an fp64 oracle (limit {PILEUP_TOL}; "
+          f"1e-5 x max(1, scale) = {fp32_tol(want):.4g}); the fp32 plain backward's {plain_err:.4g}; one hit dropped "
+          f"{one_hit[0]:.4g}, doubled {one_hit[1]:.4g}; bitwise repeatable {same}")
+
+
+def check_dx_scatter() -> float:
+    """warp_dx_scatter vs the plain backward at the narrow maps of the 512²
+    and 1024² recipes, for iid flows up to far beyond the tanh bound and the
+    smooth flow, its determinism; then the tiled gather's branches: one pixel
+    thrown across the map, every pixel on one spot (a tile whose hits
+    overflow its buffer many times over), the scalar path. Returns the
+    largest fp32 error."""
+    import torch
+
+    from lcgan_torch.ops.warp import warp_dx_scatter
+
     worst = 0.0
     for b, c, h in SCATTER_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            for s in SCATTER_FLOWS:
-                x, grid = warp_inputs(b, c, h, s, dtype)
-                g = cotangent_like(x)
-                out = warp_dx_scatter(grid, g).float()
-                torch.cuda.synchronize()
-                want = grid_sample_bicubic_plain_backward(x, grid, g)[0].float()
-                lib = library_backward(x, grid, g, [True, False])[0].float()
-                err = (out - want).abs().max().item()
-                lib_err = (out - lib).abs().max().item()
-                tag = f"warp_dx_scatter {b}x{c}x{h}x{h} {str(dtype)[6:]} s={s}"
+            for kind, s in [("iid", s) for s in SCATTER_FLOWS] + [("smooth", 0.1)]:
+                x, grid = warp_inputs(b, c, h, s, dtype, flow=kind)
+                err = check_dx_one(f"warp_dx_scatter {b}x{c}x{h}x{h} {str(dtype)[6:]} {kind} s={s}", x, grid,
+                                   cotangent_like(x))
                 if dtype == torch.float32:
-                    tol = fp32_tol(want)
                     worst = max(worst, err)
-                    check(err <= tol, f"{tag}: max_abs_err {err:.3g} (tol {tol:.3g} = 1e-5 x max(1, scale)); "
-                                      f"vs aten backward {lib_err:.3g}")
-                else:
-                    ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
-                    check(err <= ulp, f"{tag}: max_abs_err {err:.3g} (tol 1 bf16 ulp = {ulp:.3g}); "
-                                      f"vs aten backward {lib_err:.3g}")
-                del x, grid, g, out, want, lib
-            x, grid = warp_inputs(b, c, h, 0.1, dtype, seed=2)
-            g = cotangent_like(x, seed=3)
-            same = torch.equal(warp_dx_scatter(grid, g), warp_dx_scatter(grid, g))
-            check(same, f"determinism {b}x{c}x{h}x{h} {str(dtype)[6:]}: warp_dx_scatter bitwise equal {same}")
-            del x, grid, g
+                del x, grid
+            for kind in FLOW_KINDS:
+                x, grid = warp_inputs(b, c, h, 0.1, dtype, seed=2, flow=kind)
+                g = cotangent_like(x, seed=3)
+                same = torch.equal(warp_dx_scatter(grid, g), warp_dx_scatter(grid, g))
+                check(same, f"determinism {b}x{c}x{h}x{h} {str(dtype)[6:]} {kind}: warp_dx_scatter bitwise equal {same}")
+                del x, grid, g
+    b, c, h = SCATTER_SHAPES[0]
+    x, grid = warp_inputs(b, c, h, 0.03, torch.float32, flow="smooth")
+    grid[3, h // 3, 5] = torch.tensor([0.9, -0.95], device="cuda")
+    g = cotangent_like(x)
+    tag = f"warp_dx_scatter {b}x{c}x{h}x{h} fp32"
+    worst = max(worst, check_dx_one(f"{tag} smooth s=0.03, one pixel thrown across the map", x, grid, g))
+    grid = torch.full_like(grid, 0.01)  # every pixel samples one spot: one bucket holds the map
+    check_pileup(tag, x, grid, g)
+    del x, grid, g
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in FLOW_KINDS:
+            x, grid = warp_inputs(*SCALAR_SHAPE, 0.1, dtype, flow=kind)
+            check_dx_one(f"warp_dx_scatter {'x'.join(map(str, SCALAR_SHAPE))}x{SCALAR_SHAPE[-1]} {str(dtype)[6:]} "
+                         f"{kind} s=0.1 (scalar path)", x, grid, cotangent_like(x))
     return worst
 
 
-def time_dx_scatter(bw: float, flops: float) -> dict:
-    """warp_dx_scatter beside warp_dx (the route it replaces at C < 128), the
-    plain backward and aten's feature gradient, at the narrow maps of the
-    512² and 1024² recipes. Returns the row of the 512² train path's call
-    (512²c64 B=8 bf16, s = 0.1)."""
+def digest(t) -> str:
+    """A hash of a tensor's bytes, to compare two checkouts' outputs bit for bit."""
+    import hashlib
+
     import torch
 
-    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain_backward
-    from lcgan_torch.ops.warp import warp_dx, warp_dx_scatter
+    raw = t.detach().permute(0, 2, 3, 1).contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.blake2b(raw, digest_size=8).hexdigest()
 
-    main_row = None
-    for b, c, h in SCATTER_SHAPES:
-        for s in FLOWS:
-            x, grid = warp_inputs(b, c, h, s, torch.float32)
-            g = cotangent_like(x)
-            xb, gb = x.bfloat16().contiguous(memory_format=torch.channels_last), g.bfloat16().contiguous(memory_format=torch.channels_last)
-            # turns K, L, L, K; the lower of each pair (fp32)
-            k1 = cuda_ms(lambda: warp_dx_scatter(grid, g))
-            l1 = cuda_ms(lambda: library_backward(x, grid, g, [True, False]), 3)
-            l2 = cuda_ms(lambda: library_backward(x, grid, g, [True, False]), 3)
-            k2 = cuda_ms(lambda: warp_dx_scatter(grid, g))
-            kb = cuda_ms(lambda: warp_dx_scatter(grid, gb))
-            old = cuda_ms(lambda: warp_dx(grid, g), 5)
-            old_b = cuda_ms(lambda: warp_dx(grid, gb), 5)
-            plain = cuda_ms(lambda: grid_sample_bicubic_plain_backward(x, grid, g), 2)
-            plain_b = cuda_ms(lambda: grid_sample_bicubic_plain_backward(xb, grid, gb), 2)
-            n_out = b * h * h
-            nflops = 32 * c * n_out
-            for dtype, es, kernel_ms, old_ms, plain_ms in (("fp32", 4, min(k1, k2), old, plain),
-                                                           ("bf16", 2, kb, old_b, plain_b)):
-                nbytes = 2 * n_out * c * es + n_out * 2 * 4  # g read, dx written; the grid read
-                bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
-                row = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=min(l1, l2), bound_ms=max(bytes_ms, flops_ms),
-                           bound_by="bytes" if bytes_ms >= flops_ms else "operations")
-                print(f"time warp_dx_scatter {b}x{c}x{h}x{h} {dtype} s={s}: kernel {kernel_ms:.4f} ms, "
-                      f"warp_dx.cu {old_ms:.4f} ms ({old_ms / kernel_ms:.1f}x), plain backward {plain_ms:.4f} ms, "
-                      f"aten backward (fp32, dx only) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                      f"({nbytes / 1e6:.1f} MB, {row['bound_by']}), kernel at {row['bound_ms'] / kernel_ms:.1%} of bound",
-                      flush=True)
-                if (b, c, h, s, dtype) == (8, 64, 512, 0.1, "bf16"):
-                    main_row = row
-            del x, grid, g, xb, gb
-    return main_row
+
+def warp_work(name, b, c, h, es):
+    """(bytes, flops) of a warp kernel on a (b, c, h, h) map: each input (the
+    features and the cotangent as they take them, the fp32 grid) read once,
+    each output written once; 16 taps of one multiply-add per output value,
+    two per tap for warp_dgrid (x and g)."""
+    n_out = b * h * h
+    if name == "warp_dgrid":
+        return 2 * n_out * c * es + 2 * n_out * 8, 64 * c * n_out  # x, g, grid; dgrid
+    return 2 * n_out * c * es + n_out * 8, 32 * c * n_out  # x (or g), grid; out (or dx)
+
+
+def kernel_split(fn, iters: int = 5) -> dict:
+    """Device ms per call of each kernel (and memset) that ``fn`` launches, by
+    name (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"\b(warp_\w+kernel)", e.key)
+            key = m[1] if m else e.key[:40]
+            split[key] = split.get(key, 0.0) + e.self_device_time_total / 1e3 / iters
+    return split
+
+
+TIMED_KERNELS = GENERAL_KERNELS  # --time-kernels NAMES; and "even512"
+# the shapes each general kernel is timed at: warp_dx also at the narrow maps,
+# the other design in the repo for warp_dx_scatter's sum
+TIMED_SHAPES = dict(warp_fwd=FWD_SHAPES, warp_dgrid=MAIN_PATH_WARPS + SCATTER_SHAPES[:1],
+                    warp_dx=MAIN_PATH_WARPS + SCATTER_SHAPES, warp_dx_scatter=SCATTER_SHAPES)
+# the kernels line's basis (iid flow, s = 0.1): the dtype, and the shapes summed
+LINE_BASIS = dict(warp_fwd=("bfloat16", MAIN_PATH_WARPS), warp_dgrid=("float32", MAIN_PATH_WARPS),
+                  warp_dx=("float32", MAIN_PATH_WARPS), warp_dx_scatter=("bfloat16", SCATTER_SHAPES[:1]))
+
+
+def time_kernel_rows(names, bw: float, flops: float, flows=FLOWS, yardsticks: bool = False,
+                     hashes: bool = False, split: bool = False) -> list:
+    """Per-shape device ms (the lower of two runs of 20 calls) of the named
+    general kernels at TIMED_SHAPES, bf16 and fp32, on the iid and the smooth
+    flow at each s of ``flows``, beside the bound (the larger of bytes over
+    the card's memory rate and flops over its fp32 rate). In bf16 at s = 0.1
+    the wrapper's host time per call. With ``yardsticks``, at the kernels
+    line's dtype on the iid flow at s = 0.1: the plain version and the one
+    PyTorch call for the same function (F.grid_sample, aten's bicubic
+    backward; on fp32 copies made outside the timed region) in turns K, L, L,
+    K. With ``hashes``, at s = 0.1 a hash of the output (fixed inputs); with
+    ``split``, warp_dx_scatter's device ms by launch."""
+    import torch
+
+    from lcgan_torch.ops import warp
+    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain, grid_sample_bicubic_plain_backward
+
+    rows = []
+    for name in (n for n in TIMED_KERNELS if n in names):
+        for b, c, h in TIMED_SHAPES[name]:
+            for dtype in (torch.bfloat16, torch.float32):
+                for kind in FLOW_KINDS:
+                    for s in flows:
+                        x, grid = warp_inputs(b, c, h, s, dtype, flow=kind)
+                        g = None if name == "warp_fwd" else cotangent_like(x)
+                        fn = dict(warp_fwd=lambda: warp.warp_fwd(x, grid),
+                                  warp_dgrid=lambda: warp.warp_dgrid(x, grid, g)).get(
+                            name, lambda: getattr(warp, name)(grid, g))
+                        dt = str(dtype)[6:]
+                        nbytes, nflops = warp_work(name, b, c, h, x.element_size())
+                        bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
+                        row = dict(kernel=name, b=b, c=c, h=h, dtype=dt, flow=kind, s=s,
+                                   bound_ms=max(bytes_ms, flops_ms),
+                                   bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+                        if hashes and s == FLOWS[0]:
+                            row["sha"] = digest(fn())
+                        line = ""
+                        if yardsticks and (dt, kind, s) == (LINE_BASIS[name][0], "iid", FLOWS[0]):
+                            if name == "warp_fwd":
+                                xf = x.float()
+                                plain, library = (lambda: grid_sample_bicubic_plain(x, grid),
+                                                  lambda: library_grid_sample(xf, grid))
+                            else:
+                                xf, gf = x.float(), g.float()
+                                mask = [name != "warp_dgrid", name == "warp_dgrid"]
+                                plain, library = (lambda: grid_sample_bicubic_plain_backward(x, grid, g),
+                                                  lambda: library_backward(xf, grid, gf, mask))
+                            k1, l1, l2, k2 = cuda_ms(fn), cuda_ms(library, 5), cuda_ms(library, 5), cuda_ms(fn)
+                            row.update(ms=min(k1, k2), plain_ms=cuda_ms(plain, 3), library_ms=min(l1, l2))
+                            line = f", plain {row['plain_ms']:.4f} ms, library (fp32) {row['library_ms']:.4f} ms"
+                        else:
+                            row["ms"] = min(cuda_ms(fn), cuda_ms(fn))
+                        if dtype == torch.bfloat16 and s == FLOWS[0]:
+                            row["host_us"] = host_us(fn)
+                            line += f", wrapper host cost {row['host_us']:.1f} us per call"
+                        if split and name == "warp_dx_scatter":
+                            row["split"] = kernel_split(fn)
+                            line += "; by launch " + ", ".join(f"{k} {v:.4f}" for k, v in row["split"].items())
+                        rows.append(row)
+                        if "sha" in row:
+                            line += f"; hash {row['sha']}"
+                        print(f"time {name} {b}x{c}x{h}x{h} {dt} {kind} s={s}: kernel {row['ms']:.4f} ms, "
+                              f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {row['bound_by']}), "
+                              f"at {row['bound_ms'] / row['ms']:.1%} of bound{line}", flush=True)
+                        del x, grid, g, fn
+    return rows
+
+
+def line_totals(rows) -> dict:
+    """Each general kernel's kernels-line figures: its rows at LINE_BASIS
+    summed (ms, plain, library, bound)."""
+    totals = {}
+    for name, (dtype, shapes) in LINE_BASIS.items():
+        picked = [r for r in rows if r["kernel"] == name and r["dtype"] == dtype and r["flow"] == "iid"
+                  and r["s"] == FLOWS[0] and (r["b"], r["c"], r["h"]) in shapes]
+        assert len(picked) == len(shapes), (name, len(picked))
+        t = {k: sum(r[k] for r in picked) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        t["bound_by"] = "bytes" if {r["bound_by"] for r in picked} == {"bytes"} else "operations"
+        totals[name] = t
+        print(f"time {name} summed over {len(shapes)} warp(s) ({dtype}, iid s={FLOWS[0]}): kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms",
+              flush=True)
+    return totals
+
+
+def time_even_512() -> dict:
+    """The 512² recipe (bf16, batch 8, freezeD_layer 4) on one synthetic batch
+    in deterministic mode: after 8 warm iterations, 3 windows of the
+    8-iteration mix (images/s, peak memory) and an even-step profile (the warp
+    kernels' device ms per step, from the generator's own flows)."""
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.loop import deterministic_algorithms
+    from lcgan_torch.train.steps import Trainer
+
+    cfg = Config(model_name="chip_smoke_even512", img_resolution=512, batch_size=8, freezeD_layer=4,
+                 freezeD_start=10**9, device="cuda")
+    with deterministic_algorithms():
+        trainer = Trainer(cfg)
+        state = trainer.init_state()
+        batch = synthetic_batch(cfg, trainer.device)
+        for epoch in range(8):
+            state, _, _ = trainer.train_iteration(state, batch, epoch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        windows = []
+        for _ in range(MIX_WINDOWS_512):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for epoch in range(8):
+                state, _, _ = trainer.train_iteration(state, batch, epoch)
+            torch.cuda.synchronize()
+            windows.append(time.perf_counter() - t0)
+        n_img = MIX_WINDOWS_512 * 8 * cfg.batch_size
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"even512: 512² mix on one synthetic batch, deterministic, {MIX_WINDOWS_512} windows: "
+              f"{n_img / sum(windows):.2f} images/s (windows {', '.join(f'{w * 1e3:.1f}' for w in windows)} ms); "
+              f"peak memory {peak:.2f} GiB", flush=True)
+        noise = trainer.draw_noise(state, cfg.batch_size)
+        warp_ms = profile_forward(lambda: trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False),
+                                  iters=2, top=16, what="even train step at 512² (deterministic)")
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+    return dict(kernel="even512", images_per_s=n_img / sum(windows), peak_gib=peak, **warp_ms)
+
+
+def time_kernels(names, root: str) -> int:
+    """``python3 chip_smoke.py --time-kernels NAMES [ROOT]``: the named kernels
+    (comma-separated, of TIMED_KERNELS, and ``even512``) of the lcgan_torch
+    under ROOT, by ``time_kernel_rows`` (warp_dx_scatter split by launch) and
+    ``time_even_512``, printed as one JSON line of rows. Run it on two
+    checkouts in turns, each in its own process, to compare two versions of
+    the kernels on one card, time and output bits."""
+    sys.path.insert(0, os.path.abspath(root))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    import lcgan_torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    unknown = set(names) - set(TIMED_KERNELS) - {"even512"}
+    if unknown:
+        print(f"chip_smoke: --time-kernels takes {', '.join(TIMED_KERNELS)}, even512; not {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    print(f"time-kernels {names} of {os.path.dirname(lcgan_torch.__file__)}", flush=True)
+    build_kernels([n for n in names if n in TIMED_KERNELS])
+    rows = time_kernel_rows(names, *card_rates(name), hashes=True, split=True)
+    if "even512" in names:
+        rows.append(time_even_512())
+    print(json.dumps({"time_kernels": os.path.dirname(lcgan_torch.__file__), "device": name, "rows": rows}), flush=True)
+    return 0
 
 
 def check_small_kernels() -> dict:
@@ -958,11 +1152,6 @@ def time_small_kernels(bw: float, flops: float) -> dict:
                 warp_dgrid_small=(lambda: warp.warp_dgrid_small(x, grid, g), lambda: warp.warp_dgrid(x, grid, g)),
                 warp_dx_small=(lambda: warp.warp_dx_small(grid, g), lambda: warp.warp_dx(grid, g)),
             )
-            work = dict(  # (bytes: each input read once, each output written once; flops)
-                warp_fwd_small=(2 * n_out * c * es + n_out * 8, 32 * c * n_out),  # x, grid; out
-                warp_dgrid_small=(2 * n_out * c * es + 2 * n_out * 8, 64 * c * n_out),  # x, g, grid; dgrid
-                warp_dx_small=(2 * n_out * c * es + n_out * 8, 32 * c * n_out),  # g, grid; dx
-            )
             for name in SMALL_KERNELS:
                 kernel, general = calls[name]
                 # turns K, G, G, K; the lower of each pair
@@ -970,13 +1159,8 @@ def time_small_kernels(bw: float, flops: float) -> dict:
                 g1 = cuda_ms(general)
                 g2 = cuda_ms(general)
                 k2 = cuda_ms(kernel)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(50):
-                    kernel()
-                host_us = (time.perf_counter() - t0) / 50 * 1e6  # the wrapper's enqueue cost
-                torch.cuda.synchronize()
-                nbytes, nflops = work[name]
+                host = host_us(kernel)
+                nbytes, nflops = warp_work(GENERAL_OF[name], b, c, h, es)
                 bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
                 row = dict(ms=min(k1, k2), plain_ms=plain_ms[name], library_ms=lib_ms[name],
                            bound_ms=max(bytes_ms, flops_ms), general_ms=min(g1, g2))
@@ -988,7 +1172,7 @@ def time_small_kernels(bw: float, flops: float) -> dict:
                       f"{GENERAL_OF[name]} {row['general_ms']:.4f} ms ({row['general_ms'] / row['ms']:.2f}x), "
                       f"plain {row['plain_ms']:.4f} ms, torch's op (fp32) {row['library_ms']:.4f} ms, "
                       f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB{extra}), kernel at "
-                      f"{row['bound_ms'] / row['ms']:.1%} of bound; wrapper host cost {host_us:.1f} us per call",
+                      f"{row['bound_ms'] / row['ms']:.1%} of bound; wrapper host cost {host:.1f} us per call",
                       flush=True)
                 if dtype == torch.bfloat16:
                     bound_by[name].add("bytes" if bytes_ms >= flops_ms else "operations")
@@ -1557,27 +1741,6 @@ def run_probe_entry_points() -> dict:
     return launches
 
 
-def time_backward(root: str) -> int:
-    """``python3 chip_smoke.py --time-backward ROOT``: ``time_backward_kernels``
-    on the lcgan_torch under ROOT, printed as one JSON line of per-shape
-    rows. Run it on two checkouts in turns, each in its own process, to
-    compare two versions of the kernels on one card."""
-    sys.path.insert(0, os.path.abspath(root))
-    import torch
-
-    import lcgan_torch
-    from lcgan_torch.ops import _build
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    name = torch.cuda.get_device_name(0)
-    _build.build(["warp_dgrid", "warp_dx"])
-    _, rows = time_backward_kernels(*card_rates(name))
-    print(json.dumps({"time_backward": os.path.dirname(lcgan_torch.__file__), "device": name, "rows": rows}), flush=True)
-    return 0
-
-
 def main() -> int:
     import torch
 
@@ -1600,8 +1763,8 @@ def main() -> int:
     build_kernels()
     worst = dict(warp_fwd=check_warp_kernel(), **check_backward_kernels(), warp_dx_scatter=check_dx_scatter(),
                  **check_small_kernels())
-    times = dict(warp_fwd=time_warp_kernel(bw, flops), **time_backward_kernels(bw, flops)[0],
-                 warp_dx_scatter=time_dx_scatter(bw, flops), **time_small_kernels(bw, flops))
+    times = line_totals(time_kernel_rows(TIMED_KERNELS, bw, flops, flows=FLOWS[:1], yardsticks=True))
+    times.update(time_small_kernels(bw, flops))
     run_generation_path()
     run_training_path()
     check_none_route()
@@ -1662,6 +1825,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-worker"]:  # check_resume_512's fresh process
         sys.exit(resume_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
-    if sys.argv[1:2] == ["--time-backward"]:
-        sys.exit(time_backward(sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(os.path.abspath(__file__))))
+    if sys.argv[1:2] == ["--time-kernels"] and len(sys.argv) > 2:
+        sys.exit(time_kernels(sys.argv[2].split(","),
+                              sys.argv[3] if len(sys.argv) > 3 else os.path.dirname(os.path.abspath(__file__))))
+    if sys.argv[1:2] == ["--time-backward"]:  # shorthand for --time-kernels warp_dgrid,warp_dx
+        sys.exit(time_kernels(["warp_dgrid", "warp_dx"],
+                              sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(os.path.abspath(__file__))))
     sys.exit(main())

@@ -154,4 +154,27 @@ struct Vec<__nv_bfloat16, 1> {
   }
 };
 
+// Asynchronous 16-byte copy from device to shared memory (cp.async, L1
+// bypassed).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+// Waits for every cp.async this thread issued; a __syncthreads() after it
+// makes the block's copies visible to the block.
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Copies VEC elements of T into shared memory: 16 bytes asynchronously on the
+// vector path, one element on the scalar path.
+template <typename T, int VEC>
+__device__ __forceinline__ void copy_to_shared(T* smem, const T* gmem) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    cp_async16(smem, gmem);
+  } else {
+    static_assert(VEC == 1, "vector copies are 16 bytes");
+    *smem = *gmem;
+  }
+}
+
 }  // namespace lcgan

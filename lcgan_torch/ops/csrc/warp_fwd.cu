@@ -10,9 +10,12 @@
 // TPU. On Hopper the direct 16-tap gather is the natural form, and it is exact
 // for any grid: no displacement bound, no band.
 //
-// What bounds it: device-memory bytes. The work is 32 flops per output value
-// against one read of x, one read of the fp32 grid and one write of out, far
-// below the card's flop-per-byte balance.
+// What bounds it on this card: not the arithmetic (32 flops per output value)
+// and, for one read of x and one write of out, not device memory either, but
+// the taps' re-reads: each x value is read by the ~16 output pixels whose taps
+// cover it, 16 loads of 16 bytes and their conversions and multiply-adds per
+// output vector, served from L1/L2 at about a third of the byte bound on
+// i.i.d. and on smooth flows alike.
 //
 // Design:
 //   * one thread block per (batch, output row, tile of TW output columns);
@@ -27,6 +30,14 @@
 //     thread (TW = 256 / (C / VEC), at most the row width);
 //   * fp32 accumulation, taps outside the image skipped, output in the input
 //     dtype; no atomics, so results are deterministic.
+//
+// Measured and not kept (PERF.md, Findings): 2D output tiles that copy the
+// window of x their taps read into shared memory with cp.async. On maps of at
+// most 64² they gained a few microseconds a launch; above that the window
+// rarely fits, a 64 KB buffer leaves three blocks an SM and little L1 for the
+// tiles that read global memory, and 2D tiles without a window hold about
+// twice the registers: 0.5-0.95x of this kernel on every flow tried, and no
+// gain over the six warps of a generated batch.
 //
 // C interface (ctypes): lcgan_warp_fwd returns cudaGetLastError() after the
 // launch, 0 on success.

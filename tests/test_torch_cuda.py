@@ -11,6 +11,7 @@ neither JAX nor the JAX package, so on a GPU host without JAX it runs with
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from lcgan_torch.models.generator import Generator
 from lcgan_torch.ops import warp
@@ -40,6 +41,61 @@ def case(b, c, h, w, s, dtype, dev, hg=None, wg=None, seed=0):
     flow = torch.rand((b, hg, wg, 2), generator=g) * 2 - 1
     grid = (identity_like_coordinates(b, hg, wg) + flow * s).to(dev).contiguous()
     return x, grid
+
+
+def smooth_case(b, c, h, w, s, dtype, dev, seed=0):
+    """A grid whose neighbours move together: U(-1, 1) at 1/16 of the map's
+    size, upsampled bilinearly, times s (chip_smoke's smooth flow)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, c, h, w), generator=g).to(dev, dtype).contiguous(memory_format=torch.channels_last)
+    coarse = torch.rand((b, 2, max(1, h // 16), max(1, w // 16)), generator=g) * 2 - 1
+    flow = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    grid = (identity_like_coordinates(b, h, w) + flow * s).to(dev).contiguous()
+    return x, grid
+
+
+def assert_fwd_matches_plain(out, ref):
+    if out.dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= 1e-5
+    else:  # both round one fp32 sum to bf16: at most one ulp of the output scale apart
+        ulp = 2.0 ** (torch.floor(torch.log2(ref.float().abs().max())).item() - 7)
+        assert (out.float() - ref.float()).abs().max().item() <= ulp
+
+
+# (b, c, h, w) of warp_fwd's row tiles: several tiles of a row with a ragged
+# last one (C64 bf16: 32 pixels a tile), one pixel a tile (C256 fp32: 4),
+# the scalar path, and tiles as wide as the row
+FWD_EDGE_SHAPES = [(2, 64, 72, 88), (1, 256, 40, 48), (2, 5, 40, 40), (2, 512, 16, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FWD_EDGE_SHAPES)
+def test_fwd_smooth_flow_and_thrown_pixel(shape, dtype, dev):
+    """A smooth flow (neighbours move together, as the generator's do), then
+    two pixels thrown across the map among near ones: exact, and bitwise
+    repeatable."""
+    b, c, h, w = shape
+    x, grid = smooth_case(*shape, 0.03, dtype, dev)
+    assert_fwd_matches_plain(warp.warp_fwd(x, grid), grid_sample_bicubic_plain(x, grid))
+    grid[b - 1, h // 3, 5] = torch.tensor([0.9, -0.95], device=dev)
+    grid[0, h - 1, 0] = torch.tensor([-0.7, 0.8], device=dev)
+    out = warp.warp_fwd(x, grid)
+    assert_fwd_matches_plain(out, grid_sample_bicubic_plain(x, grid))
+    assert torch.equal(out, warp.warp_fwd(x, grid))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 128, 128), (2, 512, 32, 32)])
+def test_fwd_far_flow_and_the_corner(shape, dtype, dev):
+    """An iid flow far beyond the bound (taps of neighbouring pixels far
+    apart), and every pixel on one spot by the map's corner (taps across the
+    map's edge, zeros outside): exact, and bitwise repeatable."""
+    x, grid = case(*shape, 0.6, dtype, dev)
+    out = warp.warp_fwd(x, grid)
+    assert_fwd_matches_plain(out, grid_sample_bicubic_plain(x, grid))
+    assert torch.equal(out, warp.warp_fwd(x, grid))
+    corner = torch.full_like(grid, -0.99)
+    assert_fwd_matches_plain(warp.warp_fwd(x, corner), grid_sample_bicubic_plain(x, corner))
 
 
 # (b, c, h, w): vector loads (C a multiple of 4/8) and the scalar path (C = 5, 3)
@@ -329,6 +385,37 @@ def test_dx_scatter_far_grid_is_zero_and_refuses(dev):
         warp.warp_dx_scatter(grid[:, :4].contiguous(), g)
     with pytest.raises(ValueError, match="channels_last"):
         warp.warp_dx_scatter(grid, g.contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SCATTER_SHAPES)
+def test_dx_scatter_smooth_flow_and_thrown_pixel(shape, dtype, dev):
+    """A smooth flow, then two pixels thrown across the map among near ones:
+    exact, and bitwise repeatable."""
+    b, c, h, w = shape
+    x, grid = smooth_case(*shape, 0.1, dtype, dev)
+    g = cotangent(x)
+    assert_dx_matches_plain(warp.warp_dx_scatter(grid, g), grid_sample_bicubic_plain_backward(x, grid, g)[0])
+    grid[b - 1, h // 3, 5] = torch.tensor([0.9, -0.95], device=dev)
+    grid[0, h - 1, 0] = torch.tensor([-0.7, 0.8], device=dev)
+    dx = warp.warp_dx_scatter(grid, g)
+    assert_dx_matches_plain(dx, grid_sample_bicubic_plain_backward(x, grid, g)[0])
+    assert torch.equal(dx, warp.warp_dx_scatter(grid, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 32])
+def test_dx_scatter_hit_buffer_rounds(c, dtype, dev):
+    """Every output pixel on one spot: the tile there holds 4096 hits per
+    image, many times the gather's hit buffer, and walks them one buffer at
+    a time; half the map on a second spot in another tile."""
+    x, grid = case(2, c, 64, 64, 0.0, dtype, dev)
+    grid = torch.full_like(grid, 0.01)
+    grid[:, 32:] = torch.tensor([-0.5, 0.7], device=dev)
+    g = cotangent(x)
+    dx = warp.warp_dx_scatter(grid, g)
+    assert_dx_matches_plain(dx, grid_sample_bicubic_plain_backward(x, grid, g)[0])
+    assert torch.equal(dx, warp.warp_dx_scatter(grid, g))
 
 
 @pytest.mark.parametrize("c,kernel", [(64, "warp_dx_scatter"), (32, "warp_dx_scatter"), (128, "warp_dx")])

@@ -26,14 +26,41 @@ from lcgan_torch.ops import warp as t_warp
 FLOWS = [0.1, 0.03]
 
 
-def case(shape, s, seed=0):
-    """NHWC features and a (B, H, W, 2) grid, as numpy."""
+def smooth_flow(rng, b, h, w):
+    """U(-1, 1) at 1/16 of the map's size, upsampled bilinearly: neighbouring
+    pixels move together, as the generator's box-filtered flows do (the card
+    kernels' smooth-flow input)."""
+    coarse = rng.uniform(-1, 1, (b, 2, max(1, h // 16), max(1, w // 16))).astype(np.float32)
+    up = F.interpolate(torch.from_numpy(coarse), size=(h, w), mode="bilinear", align_corners=False)
+    return up.permute(0, 2, 3, 1).numpy()
+
+
+def case(shape, s, seed=0, flow="iid"):
+    """NHWC features and a (B, H, W, 2) grid, as numpy: identity plus an iid
+    U(-1, 1) flow per pixel (or a smooth one) times s."""
     b, h, w, c = shape
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(shape).astype(np.float32)
-    flow = rng.uniform(-1, 1, (b, h, w, 2)).astype(np.float32)
-    grid = np.asarray(j_gs.identity_like_coordinates(b, h, w)) + flow * np.float32(s)
+    if flow == "smooth":
+        d = smooth_flow(rng, b, h, w)
+    else:
+        d = rng.uniform(-1, 1, (b, h, w, 2)).astype(np.float32)
+    grid = np.asarray(j_gs.identity_like_coordinates(b, h, w)) + d * np.float32(s)
     return x, grid.astype(np.float32)
+
+
+def extreme_grid(kind, shape, seed=0):
+    """The card checks' grids beyond any displacement bound: "pileup", every
+    pixel on one spot; "thrown", two pixels thrown across the map among
+    smooth near ones (s = 0.03)."""
+    x, grid = case(shape, 0.03, seed, flow="smooth")
+    if kind == "pileup":
+        grid = np.full_like(grid, 0.01)
+    else:
+        b, h, w, _ = shape
+        grid[b - 1, h // 3, min(5, w - 1)] = (0.9, -0.95)
+        grid[0, h - 1, 0] = (-0.7, 0.8)
+    return x, grid
 
 
 def plain(x_nhwc: np.ndarray, grid: np.ndarray, dtype=torch.float32) -> np.ndarray:
@@ -61,6 +88,27 @@ def test_plain_matches_pallas_fwd_kernel(shape, s):
     ref = grid_sample_bicubic_pallas(jnp.asarray(x), jnp.asarray(grid), m, True)
     # the kernel sums its band as matmuls, in another order (test_warp_pallas.py:47)
     np.testing.assert_allclose(plain(x, grid), np.asarray(ref), atol=1e-4)
+
+
+@pytest.mark.parametrize("s", FLOWS)
+def test_plain_matches_pallas_fwd_kernel_smooth_flow(s):
+    """The smooth flow of the card's timings and checks, within the tanh bound."""
+    shape = (1, 8, 128, 16)
+    b, h, w, c = shape
+    m = j_gs.max_warp_displacement(max(h, w), s)
+    assert not _use_small(h, w, c, m, 4)
+    x, grid = case(shape, s, flow="smooth")
+    ref = grid_sample_bicubic_pallas(jnp.asarray(x), jnp.asarray(grid), m, True)
+    np.testing.assert_allclose(plain(x, grid), np.asarray(ref), atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["pileup", "thrown"])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 8), (1, 8, 32, 5)])
+def test_plain_matches_jax_gather_beyond_the_bound(shape, kind):
+    """Grids no band covers: the JAX gather reference is exact for any grid."""
+    x, grid = extreme_grid(kind, shape)
+    ref = j_gs.grid_sample_bicubic(jnp.asarray(x), jnp.asarray(grid))
+    np.testing.assert_allclose(plain(x, grid), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("s", FLOWS)

@@ -35,14 +35,41 @@ from lcgan_torch.ops import warp as t_warp
 FLOWS = [0.1, 0.03]
 
 
-def case(shape, s, seed=0):
-    """NHWC features, a (B, H, W, 2) grid and an NHWC cotangent, as numpy."""
+def smooth_flow(rng, b, h, w):
+    """U(-1, 1) at 1/16 of the map's size, upsampled bilinearly: neighbouring
+    pixels move together, as the generator's box-filtered flows do (the card
+    kernels' smooth-flow input)."""
+    coarse = rng.uniform(-1, 1, (b, 2, max(1, h // 16), max(1, w // 16))).astype(np.float32)
+    up = F.interpolate(torch.from_numpy(coarse), size=(h, w), mode="bilinear", align_corners=False)
+    return up.permute(0, 2, 3, 1).numpy()
+
+
+def case(shape, s, seed=0, flow="iid"):
+    """NHWC features, a (B, H, W, 2) grid and an NHWC cotangent, as numpy:
+    identity plus an iid U(-1, 1) flow per pixel (or a smooth one) times s."""
     b, h, w, c = shape
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(shape).astype(np.float32)
-    flow = rng.uniform(-1, 1, (b, h, w, 2)).astype(np.float32)
-    grid = (np.asarray(j_gs.identity_like_coordinates(b, h, w)) + flow * np.float32(s)).astype(np.float32)
+    if flow == "smooth":
+        d = smooth_flow(rng, b, h, w)
+    else:
+        d = rng.uniform(-1, 1, (b, h, w, 2)).astype(np.float32)
+    grid = (np.asarray(j_gs.identity_like_coordinates(b, h, w)) + d * np.float32(s)).astype(np.float32)
     g = rng.standard_normal(shape).astype(np.float32)
+    return x, grid, g
+
+
+def extreme_grid(kind, shape, seed=0):
+    """The card checks' grids beyond any displacement bound: "pileup", every
+    pixel on one spot; "thrown", two pixels thrown across the map among
+    smooth near ones (s = 0.03)."""
+    x, grid, g = case(shape, 0.03, seed, flow="smooth")
+    if kind == "pileup":
+        grid = np.full_like(grid, 0.01)
+    else:
+        b, h, w, _ = shape
+        grid[b - 1, h // 3, min(5, w - 1)] = (0.9, -0.95)
+        grid[0, h - 1, 0] = (-0.7, 0.8)
     return x, grid, g
 
 
@@ -109,6 +136,37 @@ def test_plain_backward_matches_pallas_scatter_dx(s):
     # the tolerances of tests/test_warp_pallas.py:63-64 (banded matmul sums)
     np.testing.assert_allclose(got[0], np.asarray(dx), atol=1e-3)
     np.testing.assert_allclose(got[1], np.asarray(dgrid), atol=2e-2)
+
+
+@pytest.mark.parametrize("s", FLOWS)
+def test_plain_backward_matches_pallas_scatter_dx_smooth_flow(s):
+    """The smooth flow of the card's timings and checks, within the tanh
+    bound, at C < 128: K2 and K4 in interpret mode."""
+    shape = (1, 16, 128, 32)
+    b, h, w, c = shape
+    m = j_gs.max_warp_displacement(max(h, w), s)
+    assert not _use_small(h, w, c, m, 4) and c < 128
+    x, grid, g = case(shape, s, flow="smooth")
+    _, vjp = jax.vjp(lambda a, b: grid_sample_bicubic_pallas(a, b, m, True), jnp.asarray(x), jnp.asarray(grid))
+    dx, dgrid = vjp(jnp.asarray(g))
+    got = plain_bwd(x, grid, g)
+    np.testing.assert_allclose(got[0], np.asarray(dx), atol=1e-3)
+    np.testing.assert_allclose(got[1], np.asarray(dgrid), atol=2e-2)
+
+
+@pytest.mark.parametrize("kind", ["pileup", "thrown"])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 8), (1, 8, 32, 5)])
+def test_plain_backward_matches_jax_beyond_the_bound(shape, kind):
+    """Grids no tanh-sized band covers: the VJPs of the JAX gather reference
+    and of the banded form with a band over the whole map."""
+    x, grid, g = extreme_grid(kind, shape)
+    got = plain_bwd(x, grid, g)
+    m = max(shape[1], shape[2]) + 3
+    for fn in (j_gs.grid_sample_bicubic, lambda a, b: j_gs.grid_sample_bicubic_banded(a, b, m)):
+        _, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(grid))
+        dx, dgrid = vjp(jnp.asarray(g))
+        # a pile-up sums every pixel's terms into 16 taps, in another order
+        assert_grads(got, (np.asarray(dx), np.asarray(dgrid)), 1e-5 * max(1.0, float(np.abs(dx).max())), 1e-5)
 
 
 @pytest.mark.parametrize("s", FLOWS)
