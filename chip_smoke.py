@@ -1,9 +1,11 @@
 """Smoke run of the PyTorch/CUDA port (lcgan_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --time-kernels warp_fwd,warp_dgrid,warp_dx,warp_dx_scatter,even512 [ROOT]
+    python3 chip_smoke.py --time-kernels warp_fwd,warp_dgrid,warp_dx,warp_dx_scatter,warp_dx_small,dyn_trip,even512 [ROOT]
         # per-shape times and output hashes of the named kernels of the lcgan_torch under
-        # ROOT (warp_dx_scatter split by launch), and the 512² mix and even-step profile (even512)
+        # ROOT (warp_dx_scatter and warp_dx_small split by launch, warp_dx_small beside
+        # warp_dx, dyn_trip's two arms beside torch.mm), and the 512² mix and even-step
+        # profile (even512)
     python3 chip_smoke.py --time-backward [ROOT]  # shorthand for --time-kernels warp_dgrid,warp_dx [ROOT]
 
 1. Builds every CUDA kernel of the port from lcgan_torch/ops/csrc with nvcc
@@ -50,9 +52,13 @@
    with an fp32 grid; the port never calls them). The kernels line sums the
    six warps for warp_fwd, warp_dgrid and warp_dx, and takes the 512² train
    path's call (512²c64 B=8) for warp_dx_scatter.
-   The small-map kernels likewise at the four small maps (bf16 and fp32,
+   The same function times warp_dx_small at the four small maps of a 256²
+   batch (on both flows; its kernels line sums them in bf16), beside
+   warp_dx at the same call, and the trip-count probe's two kernels at n =
+   1, 8, 16 and 64 beside torch.mm (its kernels line: n = 16). The other
+   small-map kernels likewise at the four small maps (bf16 and fp32,
    s = 0.1), each beside the general kernel at the same call (warp_fwd,
-   warp_dgrid, warp_dx) and with the wrapper's host time per call.
+   warp_dgrid) and with the wrapper's host time per call.
 4. Drives the generation path: `python -m lcgan_torch.cli --phase
    fake_image_generation` on a seeded flagship 256² generator (base_nf 128,
    max_nf 512, latents 64/512, bf16, batch 8), three batches. The kernel
@@ -108,9 +114,9 @@
    exactly, for random, all-0 and all-255 indices; dyn_trip_static and
    dyn_trip_dyn against an fp64 sum at 16 packs (n = 16, 8 and, for the
    loaded count, 0; max abs error <= 1e-5 x max|ref|: fp32 sums of n·256
-   products), the two bitwise equal. Times each beside its plain version,
-   the one PyTorch call for the same function (torch.gather; one torch.mm
-   of the packs side by side against w stacked, TF32 off) and its bound.
+   products), the two bitwise equal. Times the gather beside its plain
+   version, the one PyTorch call for the same function (torch.gather) and
+   its bound (the trip-count kernels: step 3).
    Then runs each entry point's main() with its defaults, counts set to 0
    just before and read just after (gather_probe 41 launches, dyn_trip_static
    4130, dyn_trip_dyn 8258), and once more as `python -m` in a fresh
@@ -274,9 +280,23 @@ def build_kernels(names=None) -> None:
     reports = _build.build(list(KERNELS) + sorted(set(PROBE_SOURCE.values())) if names is None else names)
     print(f"build: {sorted(reports) or 'already built'} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, report in reports.items():
+        entry = "?"
         for line in report.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if m:
+                entry = demangle(m[1])
             if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  {name}: {entry}: {line.strip()}")
+
+
+def demangle(symbol: str) -> str:
+    """A kernel's C++ name, by c++filt where the host has it."""
+    import shutil
+
+    if not shutil.which("c++filt"):
+        return symbol
+    out = subprocess.run(["c++filt", symbol], capture_output=True, text=True, timeout=30).stdout.strip()
+    return re.sub(r"\(anonymous namespace\)::", "", out) or symbol
 
 
 # (flow kind, s) of the kernels' checks beside SCATTER_FLOWS / FLOWS: the
@@ -848,7 +868,8 @@ def digest(t) -> str:
 
     import torch
 
-    raw = t.detach().permute(0, 2, 3, 1).contiguous().view(torch.uint8).cpu().numpy()
+    t = t.detach()
+    raw = (t.permute(0, 2, 3, 1) if t.dim() == 4 else t).contiguous().view(torch.uint8).cpu().numpy()
     return hashlib.blake2b(raw, digest_size=8).hexdigest()
 
 
@@ -885,35 +906,44 @@ def kernel_split(fn, iters: int = 5) -> dict:
     return split
 
 
-TIMED_KERNELS = GENERAL_KERNELS  # --time-kernels NAMES; and "even512"
-# the shapes each general kernel is timed at: warp_dx also at the narrow maps,
+# --time-kernels NAMES (and "even512"): the general kernels, the small-map
+# feature gradient (beside warp_dx at the same call) and the trip-count probe
+TIMED_KERNELS = GENERAL_KERNELS + ("warp_dx_small", "dyn_trip")
+# the sources each timed name builds
+TIMED_SOURCES = dict(warp_dx_small=("warp_dx_small", "warp_dx"), dyn_trip=("dyn_trip_probe",))
+# the shapes each warp kernel is timed at: warp_dx also at the narrow maps,
 # the other design in the repo for warp_dx_scatter's sum
 TIMED_SHAPES = dict(warp_fwd=FWD_SHAPES, warp_dgrid=MAIN_PATH_WARPS + SCATTER_SHAPES[:1],
-                    warp_dx=MAIN_PATH_WARPS + SCATTER_SHAPES, warp_dx_scatter=SCATTER_SHAPES)
+                    warp_dx=MAIN_PATH_WARPS + SCATTER_SHAPES, warp_dx_scatter=SCATTER_SHAPES,
+                    warp_dx_small=SMALL_PATH_WARPS)
 # the kernels line's basis (iid flow, s = 0.1): the dtype, and the shapes summed
 LINE_BASIS = dict(warp_fwd=("bfloat16", MAIN_PATH_WARPS), warp_dgrid=("float32", MAIN_PATH_WARPS),
-                  warp_dx=("float32", MAIN_PATH_WARPS), warp_dx_scatter=("bfloat16", SCATTER_SHAPES[:1]))
+                  warp_dx=("float32", MAIN_PATH_WARPS), warp_dx_scatter=("bfloat16", SCATTER_SHAPES[:1]),
+                  warp_dx_small=("bfloat16", SMALL_PATH_WARPS))
+DYN_TRIP_COUNTS = (1, 8, 16, 64)  # the trip-count probe's timed counts (static and loaded)
 
 
 def time_kernel_rows(names, bw: float, flops: float, flows=FLOWS, yardsticks: bool = False,
                      hashes: bool = False, split: bool = False) -> list:
     """Per-shape device ms (the lower of two runs of 20 calls) of the named
-    general kernels at TIMED_SHAPES, bf16 and fp32, on the iid and the smooth
+    warp kernels at TIMED_SHAPES, bf16 and fp32, on the iid and the smooth
     flow at each s of ``flows``, beside the bound (the larger of bytes over
-    the card's memory rate and flops over its fp32 rate). In bf16 at s = 0.1
-    the wrapper's host time per call. With ``yardsticks``, at the kernels
-    line's dtype on the iid flow at s = 0.1: the plain version and the one
-    PyTorch call for the same function (F.grid_sample, aten's bicubic
-    backward; on fp32 copies made outside the timed region) in turns K, L, L,
-    K. With ``hashes``, at s = 0.1 a hash of the output (fixed inputs); with
-    ``split``, warp_dx_scatter's device ms by launch."""
+    the card's memory rate and flops over its fp32 rate); warp_dx_small in
+    turns with warp_dx at the same call (K, G, G, K). In bf16 at s = 0.1 the
+    wrapper's host time per call. With ``yardsticks``, at the kernels line's
+    dtype on the iid flow at s = 0.1: the plain version and the one PyTorch
+    call for the same function (F.grid_sample, aten's bicubic backward; on
+    fp32 copies made outside the timed region) in turns K, L, L, K. With
+    ``hashes``, at s = 0.1 a hash of the output (fixed inputs); with
+    ``split``, warp_dx_scatter's and warp_dx_small's device ms by launch.
+    "dyn_trip": ``time_dyn_trip_rows``."""
     import torch
 
     from lcgan_torch.ops import warp
     from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain, grid_sample_bicubic_plain_backward
 
     rows = []
-    for name in (n for n in TIMED_KERNELS if n in names):
+    for name in (n for n in TIMED_KERNELS if n in names and n in TIMED_SHAPES):
         for b, c, h in TIMED_SHAPES[name]:
             for dtype in (torch.bfloat16, torch.float32):
                 for kind in FLOW_KINDS:
@@ -947,10 +977,15 @@ def time_kernel_rows(names, bw: float, flops: float, flows=FLOWS, yardsticks: bo
                             line = f", plain {row['plain_ms']:.4f} ms, library (fp32) {row['library_ms']:.4f} ms"
                         else:
                             row["ms"] = min(cuda_ms(fn), cuda_ms(fn))
+                        if name == "warp_dx_small":  # warp_dx at the same call, in turns with the kernel
+                            general = lambda: warp.warp_dx(grid, g)  # noqa: E731
+                            g1, g2, k3 = cuda_ms(general), cuda_ms(general), cuda_ms(fn)
+                            row.update(ms=min(row["ms"], k3), general_ms=min(g1, g2))
+                            line += f", warp_dx {row['general_ms']:.4f} ms ({row['general_ms'] / row['ms']:.2f}x)"
                         if dtype == torch.bfloat16 and s == FLOWS[0]:
                             row["host_us"] = host_us(fn)
                             line += f", wrapper host cost {row['host_us']:.1f} us per call"
-                        if split and name == "warp_dx_scatter":
+                        if split and name in ("warp_dx_scatter", "warp_dx_small"):
                             row["split"] = kernel_split(fn)
                             line += "; by launch " + ", ".join(f"{k} {v:.4f}" for k, v in row["split"].items())
                         rows.append(row)
@@ -960,23 +995,87 @@ def time_kernel_rows(names, bw: float, flops: float, flows=FLOWS, yardsticks: bo
                               f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {row['bound_by']}), "
                               f"at {row['bound_ms'] / row['ms']:.1%} of bound{line}", flush=True)
                         del x, grid, g, fn
+    if "dyn_trip" in names:
+        rows += time_dyn_trip_rows(bw, flops, yardsticks, hashes)
+    return rows
+
+
+def time_dyn_trip_rows(bw: float, flops: float, yardsticks: bool = False, hashes: bool = False) -> list:
+    """The trip-count probe's two kernels at each count of DYN_TRIP_COUNTS on
+    seeded packs (64 of them): static and loaded in turns (S, D, L, L, D, S;
+    100 calls each, the lower of each pair), beside the bound (2·256³·n flops
+    over the card's fp32 rate, or the n packs, w and out over its memory
+    rate) and the one PyTorch call for the same function (one torch.mm of the
+    n packs side by side, (256, 256n), against w stacked n times, (256n, 256),
+    TF32 off, both made outside the timed region), and each wrapper's host
+    time per call; with ``yardsticks``, at n = PROBE_PACKS, the plain version
+    (a loop of x[i] @ w); with ``hashes``, a hash of each output. One row per
+    (kernel, n)."""
+    import torch
+
+    from lcgan_torch.tools import dyn_trip_probe as p2
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pack = p2.PACK
+    x = torch.randn((max(DYN_TRIP_COUNTS), pack, pack), generator=gen, device="cuda")
+    w = torch.randn((pack, pack), generator=gen, device="cuda")
+    rows = []
+    for n in DYN_TRIP_COUNTS:
+        count = trip_count(n)
+        xcat = x[:n].permute(1, 0, 2).reshape(pack, pack * n)  # the n packs side by side
+        wstack = w.repeat(n, 1)  # w stacked n times
+        calls = dict(dyn_trip_static=lambda: p2.dyn_trip_static(x, w, n), dyn_trip_dyn=lambda: p2.dyn_trip_dyn(count, x, w))
+        library = lambda: torch.mm(xcat, wstack)  # noqa: E731
+        s1, d1, l1, l2, d2, s2 = (cuda_ms(f, 100) for f in (calls["dyn_trip_static"], calls["dyn_trip_dyn"], library,
+                                                             library, calls["dyn_trip_dyn"], calls["dyn_trip_static"]))
+        nflops = 2 * pack ** 3 * n
+        nbytes = (n + 2) * pack * pack * 4  # the n packs and w read, out written
+        flops_ms, bytes_ms = nflops / flops * 1e3, nbytes / bw * 1e3
+        base = dict(n=n, library_ms=min(l1, l2), bound_ms=max(flops_ms, bytes_ms),
+                    bound_by="operations" if flops_ms >= bytes_ms else "bytes")
+        if yardsticks and n == PROBE_PACKS:
+            # the plain loop is 2n launches a call: few calls, so that they fit behind cuda_ms's hold
+            base["plain_ms"] = min(cuda_ms(lambda: p2.packed_sum_plain(x, w, n), 4) for _ in range(2))
+        for name, ms in (("dyn_trip_static", min(s1, s2)), ("dyn_trip_dyn", min(d1, d2))):
+            row = dict(kernel=name, ms=ms, host_us=host_us(calls[name]), **base)
+            if hashes:
+                row["sha"] = digest(calls[name]())
+            rows.append(row)
+        s, d = rows[-2], rows[-1]
+        plain = f", plain (loop of x[i] @ w) {base['plain_ms']:.4f} ms" if "plain_ms" in base else ""
+        hashed = f"; hashes {s['sha']} {d['sha']}" if hashes else ""
+        print(f"time dyn_trip n={n} fp32: static {s['ms']:.4f} ms, dyn {d['ms']:.4f} ms "
+              f"({d['ms'] / s['ms']:.3f}x), torch.mm ({pack}, {pack * n}) x ({pack * n}, {pack}) "
+              f"{base['library_ms']:.4f} ms (static {base['library_ms'] / s['ms']:.2f}x faster){plain}, "
+              f"bound {base['bound_ms']:.4f} ms ({nflops / 1e9:.3f} GFLOP = {flops_ms:.4f} ms; {nbytes / 1e6:.2f} MB = "
+              f"{bytes_ms:.4f} ms; {base['bound_by']}), static at {base['bound_ms'] / s['ms']:.1%} and dyn at "
+              f"{base['bound_ms'] / d['ms']:.1%} of bound; wrapper host cost {s['host_us']:.1f} / {d['host_us']:.1f} us "
+              f"per call{hashed}", flush=True)
+    del x, w
     return rows
 
 
 def line_totals(rows) -> dict:
-    """Each general kernel's kernels-line figures: its rows at LINE_BASIS
-    summed (ms, plain, library, bound)."""
+    """Each timed kernel's kernels-line figures: a warp kernel's rows at
+    LINE_BASIS summed (ms, plain, library, bound; warp_dx_small with
+    warp_dx's ms at its calls), each trip-count kernel's row at n =
+    PROBE_PACKS."""
     totals = {}
     for name, (dtype, shapes) in LINE_BASIS.items():
         picked = [r for r in rows if r["kernel"] == name and r["dtype"] == dtype and r["flow"] == "iid"
                   and r["s"] == FLOWS[0] and (r["b"], r["c"], r["h"]) in shapes]
         assert len(picked) == len(shapes), (name, len(picked))
-        t = {k: sum(r[k] for r in picked) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (("general_ms",) if "general_ms" in picked[0] else ())
+        t = {k: sum(r[k] for r in picked) for k in keys}
         t["bound_by"] = "bytes" if {r["bound_by"] for r in picked} == {"bytes"} else "operations"
         totals[name] = t
-        print(f"time {name} summed over {len(shapes)} warp(s) ({dtype}, iid s={FLOWS[0]}): kernel {t['ms']:.4f} ms, "
-              f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms",
+        general = f", warp_dx {t['general_ms']:.4f} ms" if "general_ms" in t else ""
+        print(f"time {name} summed over {len(shapes)} warp(s) ({dtype}, iid s={FLOWS[0]}): kernel {t['ms']:.4f} ms"
+              f"{general}, plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms",
               flush=True)
+    for r in rows:
+        if r["kernel"] in ("dyn_trip_static", "dyn_trip_dyn") and r["n"] == PROBE_PACKS:
+            totals[r["kernel"]] = {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     return totals
 
 
@@ -1025,10 +1124,10 @@ def time_even_512() -> dict:
 def time_kernels(names, root: str) -> int:
     """``python3 chip_smoke.py --time-kernels NAMES [ROOT]``: the named kernels
     (comma-separated, of TIMED_KERNELS, and ``even512``) of the lcgan_torch
-    under ROOT, by ``time_kernel_rows`` (warp_dx_scatter split by launch) and
-    ``time_even_512``, printed as one JSON line of rows. Run it on two
-    checkouts in turns, each in its own process, to compare two versions of
-    the kernels on one card, time and output bits."""
+    under ROOT, by ``time_kernel_rows`` (warp_dx_scatter and warp_dx_small
+    split by launch) and ``time_even_512``, printed as one JSON line of rows.
+    Run it on two checkouts in turns, each in its own process, to compare two
+    versions of the kernels on one card, time and output bits."""
     sys.path.insert(0, os.path.abspath(root))
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
@@ -1047,7 +1146,7 @@ def time_kernels(names, root: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     print(f"time-kernels {names} of {os.path.dirname(lcgan_torch.__file__)}", flush=True)
-    build_kernels([n for n in names if n in TIMED_KERNELS])
+    build_kernels(sorted({src for n in names if n in TIMED_KERNELS for src in TIMED_SOURCES.get(n, (n,))}))
     rows = time_kernel_rows(names, *card_rates(name), hashes=True, split=True)
     if "even512" in names:
         rows.append(time_even_512())
@@ -1117,25 +1216,25 @@ def check_small_kernels() -> dict:
 
 
 def time_small_kernels(bw: float, flops: float) -> dict:
-    """K5-K7 at the four small maps of one 256² batch of 8 (s = 0.1), in bf16
-    (the train phase's dtype) and fp32, each beside the general kernel at the
-    same call, the plain version, torch's op on fp32 features (the library
-    call), the bound, and its wrapper's host time per call. Returns each
-    kernel's bf16 row summed over the four maps, with the general kernel's
-    time beside it."""
+    """K5 and K6 at the four small maps of one 256² batch of 8 (s = 0.1), in
+    bf16 (the train phase's dtype) and fp32, each beside the general kernel
+    at the same call, the plain version, torch's op on fp32 features (the
+    library call), the bound, and its wrapper's host time per call (K7:
+    time_kernel_rows). Returns each kernel's bf16 row summed over the four
+    maps, with the general kernel's time beside it."""
     import torch
 
     from lcgan_torch.ops import warp
     from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain, grid_sample_bicubic_plain_backward
 
-    total = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, general_ms=0.0) for n in SMALL_KERNELS}
-    bound_by = {n: set() for n in SMALL_KERNELS}
+    kernels = ("warp_fwd_small", "warp_dgrid_small")
+    total = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, general_ms=0.0) for n in kernels}
+    bound_by = {n: set() for n in kernels}
     for b, c, h in SMALL_PATH_WARPS:
         x32, grid = warp_inputs(b, c, h, 0.1, torch.float32)
         g32 = cotangent_like(x32)
         library = dict(warp_fwd_small=lambda: library_grid_sample(x32, grid),
-                       warp_dgrid_small=lambda: library_backward(x32, grid, g32, [False, True]),
-                       warp_dx_small=lambda: library_backward(x32, grid, g32, [True, False]))
+                       warp_dgrid_small=lambda: library_backward(x32, grid, g32, [False, True]))
         lib_ms = {n: min(cuda_ms(f, 5), cuda_ms(f, 5)) for n, f in library.items()}
         n_out = b * h * h
         for dtype in (torch.bfloat16, torch.float32):
@@ -1146,13 +1245,11 @@ def time_small_kernels(bw: float, flops: float) -> dict:
             plain = dict(warp_fwd_small=lambda: grid_sample_bicubic_plain(x, grid),
                          warp_dgrid_small=lambda: grid_sample_bicubic_plain_backward(x, grid, g))
             plain_ms = {n: cuda_ms(f, 3) for n, f in plain.items()}
-            plain_ms["warp_dx_small"] = plain_ms["warp_dgrid_small"]  # the plain backward computes both
             calls = dict(
                 warp_fwd_small=(lambda: warp.warp_fwd_small(x, grid), lambda: warp.warp_fwd(x, grid)),
                 warp_dgrid_small=(lambda: warp.warp_dgrid_small(x, grid, g), lambda: warp.warp_dgrid(x, grid, g)),
-                warp_dx_small=(lambda: warp.warp_dx_small(grid, g), lambda: warp.warp_dx(grid, g)),
             )
-            for name in SMALL_KERNELS:
+            for name in kernels:
                 kernel, general = calls[name]
                 # turns K, G, G, K; the lower of each pair
                 k1 = cuda_ms(kernel)
@@ -1180,7 +1277,7 @@ def time_small_kernels(bw: float, flops: float) -> dict:
                         total[name][k] += row[k]
             del x, g, calls, plain
         del x32, g32, grid, library
-    for name in SMALL_KERNELS:
+    for name in kernels:
         t = total[name]
         t["bound_by"] = "bytes" if bound_by[name] == {"bytes"} else "operations"
         print(f"time {name} per 256² batch of 8 (the four 8²-64² warps, bf16): kernel {t['ms']:.4f} ms, "
@@ -1630,20 +1727,16 @@ def check_probe_kernels() -> dict:
     return worst
 
 
-def time_probe_kernels(bw: float, flops: float) -> dict:
-    """Each probe kernel at its probe's shape (the (256, 128) tile; PROBE_PACKS
-    packs at n = PROBE_PACKS, and n / 2 beside it) beside its plain version,
-    the one PyTorch call for the same function (torch.gather; one torch.mm
-    of the n packs side by side, (256, 256n), against w stacked n times,
-    (256n, 256), TF32 off) and its bound, in turns (K, P, L, L, P, K; the
-    lower of each pair)."""
+def time_gather_probe(bw: float) -> dict:
+    """The gather kernel at its probe's (256, 128) tile beside its plain
+    version, the one PyTorch call for the same function (torch.gather) and
+    its bound, in turns (K, P, L, L, P, K; the lower of each pair). (The
+    trip-count kernels: time_dyn_trip_rows.)"""
     import torch
 
-    from lcgan_torch.tools import dyn_trip_probe as p2
     from lcgan_torch.tools import gather_probe as p1
 
-    rows = {}
-    tile, x, w = probe_inputs()
+    tile, _, _ = probe_inputs()
     idx = torch.randint(0, p1.TILE[0], p1.TILE, generator=torch.Generator(device="cuda").manual_seed(1),
                         device="cuda", dtype=torch.int32)
     idx64 = idx.long()  # torch.gather's index type, converted outside the timed region
@@ -1652,38 +1745,12 @@ def time_probe_kernels(bw: float, flops: float) -> dict:
     # 100 single launches (the plain version two each) fit behind cuda_ms's hold
     k1, pl1, l1, l2, pl2, k2 = (cuda_ms(calls[i], (100, 50, 100)[i]) for i in (0, 1, 2, 2, 1, 0))
     nbytes = (tile.numel() + 2 * idx.numel()) * 4  # x and idx read, out written
-    rows["gather_probe"] = dict(ms=min(k1, k2), plain_ms=min(pl1, pl2), library_ms=min(l1, l2),
-                                bound_ms=nbytes / bw * 1e3, bound_by="bytes")
-    r = rows["gather_probe"]
+    r = dict(ms=min(k1, k2), plain_ms=min(pl1, pl2), library_ms=min(l1, l2), bound_ms=nbytes / bw * 1e3,
+             bound_by="bytes")
     print(f"time gather_probe (256,128) fp32: kernel {r['ms']:.4f} ms, plain take_along_dim {r['plain_ms']:.4f} ms, "
           f"torch.gather {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({nbytes / 1024:.0f} KiB, bytes), "
           f"kernel at {r['bound_ms'] / r['ms']:.1%} of bound (launch-bound)", flush=True)
-
-    pack = p2.PACK
-    for n in (PROBE_PACKS, PROBE_PACKS // 2):
-        count = trip_count(n)
-        xcat = x[:n].permute(1, 0, 2).reshape(pack, pack * n)  # the n packs side by side
-        wstack = w.repeat(n, 1)  # w stacked n times
-        calls = (lambda: p2.dyn_trip_static(x, w, n), lambda: p2.dyn_trip_dyn(count, x, w),
-                 lambda: p2.packed_sum_plain(x, w, n), lambda: torch.mm(xcat, wstack))
-        # the plain loop is 2n launches a call: few calls, so that they fit behind cuda_ms's hold
-        s1, d1, pl1, l1, l2, pl2, d2, s2 = (cuda_ms(calls[i], (100, 100, 4, 100)[i]) for i in (0, 1, 2, 3, 3, 2, 1, 0))
-        nflops = 2 * pack ** 3 * n
-        nbytes = (n + 2) * pack * pack * 4  # the n packs and w read, out written
-        flops_ms, bytes_ms = nflops / flops * 1e3, nbytes / bw * 1e3
-        bound = max(flops_ms, bytes_ms)
-        bound_by = "operations" if flops_ms >= bytes_ms else "bytes"
-        s, d = min(s1, s2), min(d1, d2)
-        print(f"time dyn_trip packs={PROBE_PACKS} n={n} fp32: static {s:.4f} ms, dyn {d:.4f} ms ({d / s:.3f}x), "
-              f"plain (loop of x[i] @ w) {min(pl1, pl2):.4f} ms, torch.mm ({pack}, {pack * n}) x ({pack * n}, {pack}) "
-              f"{min(l1, l2):.4f} ms, bound {bound:.4f} ms ({nflops / 1e9:.3f} GFLOP = {flops_ms:.4f} ms; "
-              f"{nbytes / 1e6:.2f} MB = {bytes_ms:.4f} ms; {bound_by}), static at {bound / s:.1%} and dyn at "
-              f"{bound / d:.1%} of bound", flush=True)
-        if n == PROBE_PACKS:
-            for name, ms in (("dyn_trip_static", s), ("dyn_trip_dyn", d)):
-                rows[name] = dict(ms=ms, plain_ms=min(pl1, pl2), library_ms=min(l1, l2), bound_ms=bound,
-                                  bound_by=bound_by)
-    return rows
+    return {"gather_probe": r}
 
 
 def check_probe_output(module: str, text: str) -> None:
@@ -1782,7 +1849,7 @@ def main() -> int:
         launches.update({k: small[k] for k in SMALL_KERNELS})
         compare_routes_256()
     worst.update(check_probe_kernels())  # the probes: their own entry points
-    times.update(time_probe_kernels(bw, flops))
+    times.update(time_gather_probe(bw))
     launches.update(run_probe_entry_points())
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s", flush=True)
 

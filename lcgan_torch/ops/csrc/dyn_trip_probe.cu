@@ -13,9 +13,15 @@
 //                          SMEM. A count outside [0, packs] is outside the
 //                          contract; the kernel clamps it so that it never
 //                          reads past x.
-// The body is the same function in both, so dyn(n) equals static(n) bit for
-// bit. The probe asks whether a loop bound loaded at run time costs more
-// than one the compiler knows, and whether the time follows the count.
+// The body is one function, compiled once and called by both kernels
+// (__noinline__, n an argument), so the compiler lays out the same loop
+// whether the kernel knows n or not: the two arms differ only in where n
+// comes from, and dyn(n) equals static(n) bit for bit. The probe asks
+// whether a loop bound loaded at run time costs more than one the compiler
+// knows, and whether the time follows the count. (Inlined into each kernel,
+// the body was scheduled one way for a known n and another for a loaded one,
+// 80 and 118 registers, and the known count ran 1.4 times slower: the ratio
+// measured code generation, not the trip count; PERF.md.)
 //
 // Products are fp32 fused multiply-adds (the TPU kernel's
 // precision=HIGHEST), no TF32, in a fixed order: each thread sums its slice
@@ -37,7 +43,12 @@
 //
 // What bounds it: fp32 operations, 2 * 256^3 * n flops (0.537 GFLOP at
 // n = 16: 8.0 us at 67 TFLOP/s); the bytes (n packs, w, out: 4.7 MB at
-// n = 16) take 1.4 us at 3.35 TB/s.
+// n = 16) take 1.4 us at 3.35 TB/s. Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md), a pack takes about 1.0 us here against the bound's 0.5:
+// 4 x 8 and 8 x 8 register tiles, w in registers or in shared memory, and
+// 64 x 64 tiles summed over a cluster of 8 blocks through distributed shared
+// memory all ran 1.5 to 1.7 us a pack, and the cluster's reduction added 2
+// to 6 us a call.
 //
 // C interface (ctypes): each entry point returns cudaGetLastError() after the
 // launch, 0 on success.
@@ -68,8 +79,8 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ src, float* 
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void packed_sum(const float* __restrict__ x, const float* __restrict__ w,
-                                           float* __restrict__ out, int n) {
+__device__ __noinline__ void packed_sum(const float* __restrict__ x, const float* __restrict__ w,
+                                        float* __restrict__ out, int n) {
   __shared__ __align__(16) float smem[2 * kTile];
   const int row0 = blockIdx.y * kTM;
   const int col0 = blockIdx.x * kTN;

@@ -1,8 +1,9 @@
 // Shared pieces of the small-map warp kernels (warp_fwd_small.cu,
-// warp_dgrid_small.cu, warp_dx_small.cu): each block holds one channel group
-// of one batch element's whole map (at most 64² pixels) in dynamic shared
-// memory. The host picks the group's width (lcgan_torch/ops/warp.py
-// _small_channels); group g takes channels [g·cg, min(C, (g+1)·cg)).
+// warp_dgrid_small.cu, and warp_dx_small.cu on maps of at most 256 pixels):
+// each block holds one channel group of one batch element's whole map (at
+// most 64² pixels) in dynamic shared memory. The host picks the group's width
+// (lcgan_torch/ops/warp.py _small_channels, _dx_small_geometry); group g
+// takes channels [g·cg, min(C, (g+1)·cg)).
 
 #pragma once
 

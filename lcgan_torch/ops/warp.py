@@ -14,9 +14,11 @@ autograd Function ``BicubicWarp`` (the port of the JAX package's
     features', ``csrc/warp_dx.cu`` at C >= 128 or ``csrc/warp_dx_scatter.cu``
     at C < 128 (the split of the JAX package's ``_vjp_bwd``); the small-map
     route (``small=True``, maps of at most 64²) launches
-    ``csrc/warp_fwd_small.cu``, ``csrc/warp_dgrid_small.cu`` and
-    ``csrc/warp_dx_small.cu``, which hold a channel group's whole map in
-    shared memory. Or it raises: nothing falls back to the plain versions.
+    ``csrc/warp_fwd_small.cu`` and ``csrc/warp_dgrid_small.cu``, which hold a
+    channel group's whole map in shared memory, and ``csrc/warp_dx_small.cu``
+    (the gather of ``warp_dx_scatter.cu`` over an index built once per
+    image; on maps of at most 256 pixels a block per image and channel
+    group). Or it raises: nothing falls back to the plain versions.
 
 Every kernel is exact for any grid, as the forward is, and the dx kernels
 need Hg = H and Wg = W, the generator's only use.
@@ -29,6 +31,7 @@ so that a run takes the same route in both packages.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -52,7 +55,7 @@ _SIGNATURES = {
     "warp_dx_scatter": ("lcgan_warp_dx_scatter", [_PTR] * 3 + [ctypes.c_longlong, _PTR] + [_INT] * 6 + [_PTR]),
     "warp_fwd_small": ("lcgan_warp_fwd_small", [_PTR] * 3 + [_INT] * 9 + [_PTR]),
     "warp_dgrid_small": ("lcgan_warp_dgrid_small", [_PTR] * 5 + [_INT] * 9 + [_PTR]),
-    "warp_dx_small": ("lcgan_warp_dx_small", [_PTR] * 3 + [_INT] * 7 + [_PTR]),
+    "warp_dx_small": ("lcgan_warp_dx_small", [_PTR] * 4 + [_INT] * 11 + [_PTR]),
 }
 _DX_SPLIT_C = 128  # dx kernel by channel count, as _vjp_bwd splits it (lcgan_tpu/ops/warp_pallas.py)
 _SCAN_TILE = 1024  # counts scanned per block: kScanTile in csrc/warp_dx_scatter.cu
@@ -60,6 +63,13 @@ _SMALL_MAX = 64  # the small-map kernels take maps of at most 64²
 _SMALL_SMEM = 229_376  # shared memory a small-map block may take: kMaxSmem in csrc/warp_small.cuh
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 _SMALL_MIN_BLOCKS = 2 * _SMS  # about two blocks per SM
+# warp_dx_small's gather (csrc/warp_dx_gather.cuh, csrc/warp_dx_small.cu): threads and tile sides of a block
+_GATHER_THREADS = 256  # kGatherThreads
+_GATHER_MAX_TILE = 16  # kMaxTile
+_DX_SMALL_CHUNK = 512  # channel bytes of a pixel a gather block takes: one per lane of a warp
+_DX_SMALL_ITEMS = 1024  # (pixel, vector) items of a block at most
+_DX_SMALL_BUFFER = 52 * 1024  # the hit buffer: four blocks an SM
+_DX_SMALL_LOCAL = 256  # maps of at most this many pixels: one launch, a block per image and channel group
 
 
 # ----------------------------------------------------------------------------
@@ -282,29 +292,89 @@ def _check_small_map(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} takes maps of at most {_SMALL_MAX}², got {tuple(t.shape[2:])}")
 
 
-def _small_channels(b: int, c: int, h: int, w: int, t: torch.Tensor, vec: int, extra_smem: int = 0,
-                    min_blocks: int = _SMALL_MIN_BLOCKS) -> int:
-    """Channels per block of a small-map kernel (one block per batch element
-    and channel group): C, halved while the group's h·w map with
-    ``extra_smem`` bytes of the kernel's own overflows a block's shared
-    memory or the grid has fewer than ``min_blocks`` blocks; a multiple of
-    the 16-byte vector's channels on the vector path."""
-    step = 16 // t.element_size() if vec else 1
+def _small_channels(b: int, c: int, h: int, w: int, t: torch.Tensor, vec: int) -> int:
+    """Channels per block of the small-map forward and grid-gradient kernels
+    (one block per batch element and channel group): C, halved while the
+    group's h·w map overflows a block's shared memory or the grid has fewer
+    than about two blocks per SM; a multiple of the 16-byte vector's channels
+    on the vector path."""
+    return _channel_group(b, c, h, w, t.element_size(), vec)
 
-    def smem(cg):
-        return h * w * cg * t.element_size() + extra_smem
 
+def _channel_group(b: int, c: int, h: int, w: int, es: int, vec: int, min_blocks: int = _SMALL_MIN_BLOCKS) -> int:
+    """``_small_channels`` for ``es``-byte elements and a grid of at least
+    ``min_blocks`` blocks."""
+    step = 16 // es if vec else 1
     cg = c
-    while cg > step and (smem(cg) > _SMALL_SMEM or b * -(-c // cg) < min_blocks):
+    while cg > step and (h * w * cg * es > _SMALL_SMEM or b * -(-c // cg) < min_blocks):
         cg = max(step, cg // 2 // step * step)
     return cg
 
 
-def _dx_small_extra_smem(h: int, w: int) -> int:
-    """Shared memory of ``warp_dx_small`` besides the cotangent's map: each
-    pixel's fractional offsets, bucket and list slot, the bucket ends, and
-    16 bytes of alignment (csrc/warp_dx_small.cu)."""
-    return h * w * 16 + ((h + 3) * (w + 3) + 1) * 4 + 16
+@dataclasses.dataclass(frozen=True)
+class DxSmallGeometry:
+    """The launch of ``warp_dx_small``: blocks of ``th`` x ``tw`` input
+    pixels (the whole map if ``local``) and ``cv`` channel vectors (of 16
+    bytes, or single channels on the scalar path), with ``smem`` bytes of
+    dynamic shared memory; ``local``: one launch, each block indexes its
+    image itself, else one block per image first (``scratch_ints`` int32)
+    and a gather with a buffer of ``nbuf`` hits."""
+
+    th: int
+    tw: int
+    cv: int
+    nbuf: int
+    local: bool
+    smem: int
+    scratch_ints: int
+
+
+def _dx_small_index_ints(h: int, w: int) -> int:
+    """Shared-memory int32 of one image's bucket index (csrc/warp_dx_small.cu
+    ``index_ints``): each pixel's bucket and the list, the bucket starts and
+    their end, the counts."""
+    return 2 * h * w + 2 * (h + 3) * (w + 3) + 1
+
+
+def _dx_small_geometry(b: int, c: int, h: int, w: int, es: int, vec: int) -> DxSmallGeometry:
+    """``warp_dx_small``'s launch for a (b, c, h, w) map of ``es``-byte
+    elements (16-byte vectors if ``vec``).
+
+    Maps of at most _DX_SMALL_LOCAL pixels: one block per image and channel
+    group, holding the group's whole map of g, each pixel's 8 weights and the
+    image's index; the groups as wide as about one block per SM allows, so
+    that as few blocks as that build each image's index.
+
+    Larger maps: chunks of _DX_SMALL_CHUNK bytes of a pixel's channels; tiles
+    of at most 16 x 16 and _DX_SMALL_ITEMS (pixel, vector) items, halved
+    while the grid is short of about two blocks per SM and a block keeps a
+    round of items; a hit buffer of as many hits as _DX_SMALL_BUFFER holds (a
+    hit: 8 weights, its pixel and its chunk of g) and no more than the map
+    has."""
+    step = 16 // es if vec else 1
+    nvec = c // step
+    if h * w <= _DX_SMALL_LOCAL:
+        cv = _channel_group(b, c, h, w, es, vec, _SMS) // step
+        smem = _round_up(h * w * cv * step * es, 16) + 8 * 4 * h * w + 4 * _dx_small_index_ints(h, w)
+        return DxSmallGeometry(th=h, tw=w, cv=cv, nbuf=0, local=True, smem=smem, scratch_ints=0)
+    cv = min(nvec, max(1, _DX_SMALL_CHUNK // (step * es)))
+    nchunks = -(-nvec // cv)
+    th, tw = min(h, _GATHER_MAX_TILE), min(w, _GATHER_MAX_TILE)
+
+    def blocks():
+        return b * -(-h // th) * -(-w // tw) * nchunks
+
+    def halve(th, tw):
+        return ((th + 1) // 2, tw) if th >= tw else (th, (tw + 1) // 2)
+
+    while th * tw * cv > _DX_SMALL_ITEMS:
+        th, tw = halve(th, tw)
+    while blocks() < _SMALL_MIN_BLOCKS and th * tw * cv > _GATHER_THREADS and th * tw > 1:
+        th, tw = halve(th, tw)
+    per_hit = cv * step * es + 9 * 4
+    nbuf = _round_up(max(1, min(_DX_SMALL_BUFFER // per_hit, h * w)), 4)
+    return DxSmallGeometry(th=th, tw=tw, cv=cv, nbuf=nbuf, local=False, smem=nbuf * per_hit,
+                           scratch_ints=b * ((h + 3) * (w + 3) + 1 + h * w))
 
 
 def warp_fwd_small(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -367,8 +437,9 @@ def warp_dgrid_small(x: torch.Tensor, grid: torch.Tensor, g: torch.Tensor) -> to
 
 
 def warp_dx_small(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA small-map feature-gradient kernel (the bucket sort of
-    the output pixels and the gather, in one block's shared memory). Counts
+    """Launch the CUDA small-map feature-gradient kernels (the bucket index of
+    the output pixels, once per image, and the tiled gather; on maps of at
+    most 256 pixels one launch, a block per image and channel group). Counts
     its launches in ``warp_dx_small.launches``.
 
     The arguments and the result are ``warp_dx``'s, with the map at most
@@ -382,10 +453,11 @@ def warp_dx_small(grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return dx
     fn = _fn("warp_dx_small")
     vec = _vec(g, dx)
-    # its index takes a block's shared memory at 64²: one block per SM
-    cg = _small_channels(b, c, h, w, g, vec, _dx_small_extra_smem(h, w), _SMS)
+    geo = _dx_small_geometry(b, c, h, w, g.element_size(), vec)
+    scratch = torch.empty(geo.scratch_ints, dtype=torch.int32, device=g.device)
     with torch.cuda.device(g.device):
-        rc = fn(grid.data_ptr(), g.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype], vec, b, c, h, w, cg, _stream(g))
+        rc = fn(grid.data_ptr(), g.data_ptr(), scratch.data_ptr(), dx.data_ptr(), _DTYPES[g.dtype], vec, b, c, h, w,
+                geo.th, geo.tw, geo.cv, geo.nbuf, int(geo.local), _stream(g))
     _build.raise_on(rc, "warp_dx_small")
     warp_dx_small.launches += 1
     return dx

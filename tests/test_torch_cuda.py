@@ -514,12 +514,75 @@ def test_dx_small_gathered_grid(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [8, 64])
+@pytest.mark.parametrize("h", [8, 16, 32, 64])
 def test_small_backward_kernels_are_deterministic(h, dtype, dev):
     x, grid = case(8, 512, h, h, 0.1, dtype, dev)
     g = cotangent(x)
     assert torch.equal(warp.warp_dgrid_small(x, grid, g), warp.warp_dgrid_small(x, grid, g))
     assert torch.equal(warp.warp_dx_small(grid, g), warp.warp_dx_small(grid, g))
+
+
+# (b, c, h, w) of warp_dx_small's own cases: the four small maps of a 256²
+# batch (one launch at 8² and 16², index and gather above), and the scalar
+# path (C = 5) on a 40² map of several tiles
+DX_SMALL_SHAPES = [(8, 512, 8, 8), (8, 512, 16, 16), (8, 512, 32, 32), (8, 512, 64, 64), (2, 5, 40, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DX_SMALL_SHAPES)
+def test_dx_small_flows_and_thrown_pixel(shape, dtype, dev):
+    """warp_dx_small against the plain backward on the iid flow (s = 0.1 and
+    far beyond the bound, 0.6), the smooth flow (neighbours move together),
+    and with one pixel thrown across the map; bitwise repeatable."""
+    b, c, h, w = shape
+    for x, grid in (case(*shape, 0.1, dtype, dev), case(*shape, 0.6, dtype, dev),
+                    smooth_case(*shape, 0.1, dtype, dev)):
+        g = cotangent(x)
+        assert_dx_matches_plain(warp.warp_dx_small(grid, g), grid_sample_bicubic_plain_backward(x, grid, g)[0])
+    grid[0, h - 1, 0] = torch.tensor([0.9, -0.95], device=dev)
+    grid[-1, h // 3, w // 2] = torch.tensor([-0.7, 0.8], device=dev)
+    dx = warp.warp_dx_small(grid, g)
+    assert_dx_matches_plain(dx, grid_sample_bicubic_plain_backward(x, grid, g)[0])
+    assert torch.equal(dx, warp.warp_dx_small(grid, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [16, 64])
+def test_dx_small_hit_buffer_rounds(h, dtype, dev):
+    """Every output pixel of the first image on one spot by the map's corner,
+    of the second half on one spot and half on another: one bucket holds
+    hundreds of pixels (heap-sorted), which at 64² the tiles there walk one
+    hit buffer at a time (at 16² a block holds the whole map); a grid whose
+    pixels all sample outside the map gives zeros."""
+    x, grid = case(2, 512, h, h, 0.0, dtype, dev)
+    grid[0] = torch.tensor([-0.97, -0.99], device=dev)
+    grid[1, : h // 2] = torch.tensor([0.95, 0.9], device=dev)
+    grid[1, h // 2:] = torch.tensor([-0.2, 0.3], device=dev)
+    g = cotangent(x)
+    dx = warp.warp_dx_small(grid, g)
+    assert_dx_matches_plain(dx, grid_sample_bicubic_plain_backward(x, grid, g)[0])
+    assert torch.equal(dx, warp.warp_dx_small(grid, g))
+    assert torch.count_nonzero(warp.warp_dx_small(torch.full_like(grid, -1.5), g)) == 0
+
+
+@pytest.mark.parametrize("h,kernels", [(8, 1), (16, 1), (32, 2), (64, 2)])
+def test_dx_small_launches_per_call(h, kernels, dev):
+    """The device kernels of one warp_dx_small call, by the profiler (no
+    timing): one at 8² and 16², where each block indexes its image itself,
+    and the index kernel before the gather above."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, grid = case(8, 512, h, h, 0.1, torch.bfloat16, dev)
+    g = cotangent(x)
+    warp.warp_dx_small(grid, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warp.warp_dx_small(grid, g)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+             for _ in range(e.count)]
+    assert len(names) == kernels and all("warp_dx" in n for n in names), names
 
 
 def test_small_kernels_refuse(dev):
@@ -637,6 +700,21 @@ def test_dyn_trip_matches_fp64_and_static_bitwise(n, dev):
     torch.cuda.synchronize()
     after = (dyn_trip_probe.dyn_trip_static.launches, dyn_trip_probe.dyn_trip_dyn.launches)
     assert after == (before[0] + (n in dyn_trip_probe.STATIC_COUNTS), before[1] + 1)
+
+
+@pytest.mark.parametrize("n", dyn_trip_probe.STATIC_COUNTS)
+def test_dyn_trip_every_static_count(n, dev):
+    """Both arms at every static count on 64 packs: the loaded count gives the
+    static one's bits, and both are within 1e-5 of the output's scale of an
+    fp64 sum; n = 0, loaded, gives zeros."""
+    x, w = packs_on(dev, packs=64)
+    static = dyn_trip_probe.dyn_trip_static(x, w, n)
+    dyn = dyn_trip_probe.dyn_trip_dyn(torch.tensor([n], dtype=torch.int32, device=dev), x, w)
+    assert torch.equal(dyn, static)
+    ref = (x[:n].double() @ w.double()).sum(0)
+    for out in (static, dyn):
+        assert (out.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert torch.count_nonzero(dyn_trip_probe.dyn_trip_dyn(torch.tensor([0], dtype=torch.int32, device=dev), x, w)) == 0
 
 
 def test_dyn_trip_clamps_and_refuses(dev):

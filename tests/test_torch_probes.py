@@ -18,6 +18,7 @@ and chip_smoke.py.
 """
 
 import functools
+import re
 import subprocess
 import sys
 import types
@@ -83,6 +84,30 @@ def test_dyn_trip_plain_refuses_counts_out_of_range():
     for n in (-1, 3):
         with pytest.raises(ValueError, match="outside"):
             t_dyn.packed_sum_plain(x, w, n)
+
+
+def slice_indices(n, slices, pack):
+    """A model of the kernels' split of the inner dimension
+    (csrc/dyn_trip_probe.cu): the threads of slice ks sum the inner indices
+    i·pack + j, j in [ks·pack/slices, (ks+1)·pack/slices), of every pack
+    i < n, pack by pack; the slices' partial tiles are then added in slice
+    order. Returns the slices' indices in that order."""
+    s = pack // slices
+    return [[i * pack + j for i in range(n) for j in range(ks * s, (ks + 1) * s)] for ks in range(slices)]
+
+
+def test_dyn_trip_inner_split_sums_each_index_once():
+    """Under the kernel's own constants, the split sums every inner index of
+    n·256 exactly once, an equal share in each slice, for n = 0...64."""
+    src = (ROOT / "lcgan_torch" / "ops" / "csrc" / "dyn_trip_probe.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (kN|kTN|kThreads) = (\d+);", src)}
+    pack, slices = const["kN"], const["kThreads"] // (const["kTN"] // 2)
+    assert pack == t_dyn.PACK and slices == 16
+    assert "const int ks = threadIdx.x / kColPairs;" in src and "(ks * kSlice + j) * kN" in src
+    for n in range(max(t_dyn.STATIC_COUNTS) + 1):
+        parts = slice_indices(n, slices, pack)
+        assert [len(part) for part in parts] == [n * pack // slices] * slices
+        assert sorted(k for part in parts for k in part) == list(range(n * pack))
 
 
 # --- P1: tools/gather_probe.py:39-50, word for word but for interpret=True ---

@@ -19,6 +19,8 @@ tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import os
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -186,19 +188,72 @@ def test_small_kernel_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_small_channel_groups(dtype):
-    """The CUDA kernels' own groups: C halved until the grid has enough
-    blocks (about two per SM of an H100; warp_dx_small, whose index fills a
-    block's shared memory at 64², about one) and the map fits a block's
-    shared memory, in whole 16-byte vectors."""
+    """The forward and grid-gradient kernels' own groups: C halved until the
+    grid has enough blocks (about two per SM of an H100) and the map fits a
+    block's shared memory, in whole 16-byte vectors."""
     t = torch.empty(0, dtype=dtype)
     for h in (8, 16, 32, 64):
-        extra = t_warp._dx_small_extra_smem(h, h)
-        assert t_warp._small_channels(8, 512, h, h, t, 1) == 8
-        dx_cg = t_warp._small_channels(8, 512, h, h, t, 1, extra, t_warp._SMS)
-        assert dx_cg == (8 if (h, dtype) == (64, torch.float32) else 16)  # 16 fp32 channels at 64² overflow
-        assert h * h * dx_cg * t.element_size() + extra <= t_warp._SMALL_SMEM
+        cg = t_warp._small_channels(8, 512, h, h, t, 1)
+        assert cg == 8
+        assert h * h * cg * t.element_size() <= t_warp._SMALL_SMEM
     assert t_warp._small_channels(2, 5, 12, 12, t, 0) == 1  # the scalar path: any C
     assert t_warp._small_channels(1024, 512, 8, 8, t, 1) == 512  # enough blocks from the batch alone
+
+
+CSRC = Path(t_warp.__file__).resolve().parent / "csrc"
+# (b, c, h, w, vec) of warp_dx_small's launches: the four small maps of a 256²
+# batch (C = 512) on the vector path, and odd C on the scalar path
+DX_SMALL_LAUNCHES = ([(8, 512, h, h, 1) for h in (8, 16, 32, 64)]
+                     + [(2, 5, 40, 40, 0), (1, 3, 9, 7, 0), (2, 16, 8, 8, 0), (2, 24, 4, 64, 1)])
+
+
+def test_dx_small_geometry_matches_the_kernel_sources():
+    """The host's copies of the gather's constants and of the index's size."""
+    gather = (CSRC / "warp_dx_gather.cuh").read_text()
+    small = (CSRC / "warp_dx_small.cu").read_text()
+    assert re.search(r"constexpr int kGatherThreads = (\d+);", gather)[1] == str(t_warp._GATHER_THREADS)
+    assert re.search(r"constexpr int kMaxTile = (\d+);", gather)[1] == str(t_warp._GATHER_MAX_TILE)
+    assert "return 2 * H * W + 2 * (H + 3) * (W + 3) + 1;" in small
+    assert "nbuf * (9 * sizeof(float) + cv * VEC * sizeof(T))" in small
+    assert "map_g_bytes(H * W, cg, sizeof(T)) + (size_t)H * W * 8 * sizeof(float) + index_bytes;" in small
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w,vec", DX_SMALL_LAUNCHES)
+def test_dx_small_geometry_covers_each_pixel_and_channel_once(b, c, h, w, vec, dtype):
+    """warp_dx_small's tiles and chunks, decoded from the block index as the
+    kernels decode it, cover every (image, pixel, channel vector) exactly
+    once, and a block's shared memory stays under a small-map block's limit:
+    at most 256 pixels, one block per image and channel group (the group's
+    map of g, 8 weights a pixel and the index); above, tiles of at most
+    16 x 16 and a buffer of whole groups of 4 hits."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    step = 16 // es if vec else 1  # channels of a vector
+    geo = t_warp._dx_small_geometry(b, c, h, w, es, vec)
+    assert c % step == 0 and geo.local == (h * w <= t_warp._DX_SMALL_LOCAL)
+    if geo.local:
+        assert (geo.th, geo.tw, geo.scratch_ints) == (h, w, 0)
+        assert geo.cv * step == t_warp._channel_group(b, c, h, w, es, vec, t_warp._SMS)
+        index = 4 * t_warp._dx_small_index_ints(h, w)
+        assert geo.smem == t_warp._round_up(h * w * geo.cv * step * es, 16) + 32 * h * w + index
+    else:
+        assert 1 <= geo.th <= t_warp._GATHER_MAX_TILE and 1 <= geo.tw <= t_warp._GATHER_MAX_TILE
+        assert geo.nbuf >= 4 and geo.nbuf % 4 == 0 and geo.nbuf <= t_warp._round_up(h * w, 4)
+        assert geo.smem == geo.nbuf * (geo.cv * step * es + 36)
+        assert geo.scratch_ints == b * ((h + 3) * (w + 3) + 1 + h * w)
+    assert geo.smem <= t_warp._SMALL_SMEM
+    nvec = c // step
+    nchunks = -(-nvec // geo.cv)
+    tiles_x = -(-w // geo.tw)
+    ntiles = tiles_x * -(-h // geo.th)
+    seen = np.zeros((b, h, w, nvec), np.uint8)
+    for bid in range(b * ntiles * nchunks):
+        chunk, rest = bid % nchunks, bid // nchunks
+        tile, image = rest % ntiles, rest // ntiles
+        u0, v0 = tile // tiles_x * geo.th, tile % tiles_x * geo.tw
+        cw = min(geo.cv, nvec - chunk * geo.cv)
+        seen[image, u0:u0 + geo.th, v0:v0 + geo.tw, chunk * geo.cv:chunk * geo.cv + cw] += 1
+    assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("w_psi", [0.7, -1.0])
