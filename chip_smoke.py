@@ -1,11 +1,11 @@
 """Smoke run of the PyTorch/CUDA port (lcgan_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --time-kernels warp_fwd,warp_dgrid,warp_dx,warp_dx_scatter,warp_dx_small,dyn_trip,even512 [ROOT]
+    python3 chip_smoke.py --time-kernels warp_fwd,warp_dgrid,warp_dx,warp_dx_scatter,warp_fwd_small,warp_dgrid_small,warp_dx_small,dyn_trip,even512 [ROOT]
         # per-shape times and output hashes of the named kernels of the lcgan_torch under
-        # ROOT (warp_dx_scatter and warp_dx_small split by launch, warp_dx_small beside
-        # warp_dx, dyn_trip's two arms beside torch.mm), and the 512² mix and even-step
-        # profile (even512)
+        # ROOT (warp_dx_scatter, warp_dgrid_small and warp_dx_small split by launch, each
+        # small-map kernel beside its general kernel, dyn_trip's two arms beside torch.mm),
+        # and the 512² mix and even-step profile (even512)
     python3 chip_smoke.py --time-backward [ROOT]  # shorthand for --time-kernels warp_dgrid,warp_dx [ROOT]
 
 1. Builds every CUDA kernel of the port from lcgan_torch/ops/csrc with nvcc
@@ -52,13 +52,12 @@
    with an fp32 grid; the port never calls them). The kernels line sums the
    six warps for warp_fwd, warp_dgrid and warp_dx, and takes the 512² train
    path's call (512²c64 B=8) for warp_dx_scatter.
-   The same function times warp_dx_small at the four small maps of a 256²
-   batch (on both flows; its kernels line sums them in bf16), beside
-   warp_dx at the same call, and the trip-count probe's two kernels at n =
-   1, 8, 16 and 64 beside torch.mm (its kernels line: n = 16). The other
-   small-map kernels likewise at the four small maps (bf16 and fp32,
-   s = 0.1), each beside the general kernel at the same call (warp_fwd,
-   warp_dgrid) and with the wrapper's host time per call.
+   The same function times the three small-map kernels at the four small
+   maps of a 256² batch (bf16 and fp32, both flows; their kernels line sums
+   the four in bf16), each in turns with its general kernel at the same
+   call (warp_fwd, warp_dgrid, warp_dx), and the trip-count probe's two
+   kernels at n = 1, 8, 16 and 64 beside torch.mm (its kernels line:
+   n = 16).
 4. Drives the generation path: `python -m lcgan_torch.cli --phase
    fake_image_generation` on a seeded flagship 256² generator (base_nf 128,
    max_nf 512, latents 64/512, bf16, batch 8), three batches. The kernel
@@ -455,15 +454,17 @@ def check_backward_kernels() -> dict:
     return worst
 
 
-# the general route's warp kernels by their kernel names (K4's memset is not counted)
+# the warp kernels by their kernel names (K4's memset is not counted)
 WARP_KERNEL_NAMES = (("warp_fwd", r"\bwarp_fwd_kernel"), ("warp_dgrid", r"\bwarp_dgrid_kernel"),
-                     ("warp_dx", r"\bwarp_dx_(rows_)?kernel"), ("warp_dx_scatter", r"\bwarp_dxs_\w*kernel"))
+                     ("warp_dx", r"\bwarp_dx_(rows_)?kernel"), ("warp_dx_scatter", r"\bwarp_dxs_\w*kernel"),
+                     ("warp_fwd_small", r"\bwarp_fwd_small_kernel"), ("warp_dgrid_small", r"\bwarp_dgrid_small_kernel"),
+                     ("warp_dx_small", r"\bwarp_dx(sm_\w+|_small)_kernel"))
 
 
 def profile_forward(fn, iters: int = 5, top: int = 12, what: str = "forward") -> dict:
     """Device time of ``iters`` calls by kernel (torch.profiler), and the
-    device's idle share of the window's wall time. Returns the general
-    route's warp kernels' device ms per call, by kernel, and the device ms."""
+    device's idle share of the window's wall time. Returns the warp
+    kernels' device ms per call, by kernel, and the device ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -907,19 +908,22 @@ def kernel_split(fn, iters: int = 5) -> dict:
 
 
 # --time-kernels NAMES (and "even512"): the general kernels, the small-map
-# feature gradient (beside warp_dx at the same call) and the trip-count probe
-TIMED_KERNELS = GENERAL_KERNELS + ("warp_dx_small", "dyn_trip")
+# kernels (each beside its general kernel at the same call) and the
+# trip-count probe
+TIMED_KERNELS = GENERAL_KERNELS + SMALL_KERNELS + ("dyn_trip",)
 # the sources each timed name builds
-TIMED_SOURCES = dict(warp_dx_small=("warp_dx_small", "warp_dx"), dyn_trip=("dyn_trip_probe",))
+TIMED_SOURCES = dict({k: (k, GENERAL_OF[k]) for k in SMALL_KERNELS}, dyn_trip=("dyn_trip_probe",))
 # the shapes each warp kernel is timed at: warp_dx also at the narrow maps,
 # the other design in the repo for warp_dx_scatter's sum
 TIMED_SHAPES = dict(warp_fwd=FWD_SHAPES, warp_dgrid=MAIN_PATH_WARPS + SCATTER_SHAPES[:1],
                     warp_dx=MAIN_PATH_WARPS + SCATTER_SHAPES, warp_dx_scatter=SCATTER_SHAPES,
-                    warp_dx_small=SMALL_PATH_WARPS)
+                    **dict.fromkeys(SMALL_KERNELS, SMALL_PATH_WARPS))
 # the kernels line's basis (iid flow, s = 0.1): the dtype, and the shapes summed
 LINE_BASIS = dict(warp_fwd=("bfloat16", MAIN_PATH_WARPS), warp_dgrid=("float32", MAIN_PATH_WARPS),
                   warp_dx=("float32", MAIN_PATH_WARPS), warp_dx_scatter=("bfloat16", SCATTER_SHAPES[:1]),
-                  warp_dx_small=("bfloat16", SMALL_PATH_WARPS))
+                  **dict.fromkeys(SMALL_KERNELS, ("bfloat16", SMALL_PATH_WARPS)))
+# kernels whose device ms are also reported by launch (profiler)
+SPLIT_KERNELS = ("warp_dx_scatter", "warp_dgrid_small", "warp_dx_small")
 DYN_TRIP_COUNTS = (1, 8, 16, 64)  # the trip-count probe's timed counts (static and loaded)
 
 
@@ -928,14 +932,16 @@ def time_kernel_rows(names, bw: float, flops: float, flows=FLOWS, yardsticks: bo
     """Per-shape device ms (the lower of two runs of 20 calls) of the named
     warp kernels at TIMED_SHAPES, bf16 and fp32, on the iid and the smooth
     flow at each s of ``flows``, beside the bound (the larger of bytes over
-    the card's memory rate and flops over its fp32 rate); warp_dx_small in
-    turns with warp_dx at the same call (K, G, G, K). In bf16 at s = 0.1 the
-    wrapper's host time per call. With ``yardsticks``, at the kernels line's
-    dtype on the iid flow at s = 0.1: the plain version and the one PyTorch
-    call for the same function (F.grid_sample, aten's bicubic backward; on
-    fp32 copies made outside the timed region) in turns K, L, L, K. With
-    ``hashes``, at s = 0.1 a hash of the output (fixed inputs); with
-    ``split``, warp_dx_scatter's and warp_dx_small's device ms by launch.
+    the card's memory rate and flops over its fp32 rate); each small-map
+    kernel in turns with its general kernel at the same call (K, G, G, K).
+    In bf16 at s = 0.1 the wrapper's host time per call. With
+    ``yardsticks``, at the kernels line's dtype on the iid flow at s = 0.1:
+    the plain version and the one PyTorch call for the same function
+    (F.grid_sample, aten's bicubic backward; on fp32 copies made outside the
+    timed region) in turns K, L, L, K. With ``hashes``, at s = 0.1 a hash of
+    the output (fixed inputs); with ``split``, the device ms by launch of
+    SPLIT_KERNELS. The small-map kernels are called through their public
+    wrappers only, so that the timer also runs on an earlier checkout.
     "dyn_trip": ``time_dyn_trip_rows``."""
     import torch
 
@@ -949,12 +955,14 @@ def time_kernel_rows(names, bw: float, flops: float, flows=FLOWS, yardsticks: bo
                 for kind in FLOW_KINDS:
                     for s in flows:
                         x, grid = warp_inputs(b, c, h, s, dtype, flow=kind)
-                        g = None if name == "warp_fwd" else cotangent_like(x)
-                        fn = dict(warp_fwd=lambda: warp.warp_fwd(x, grid),
-                                  warp_dgrid=lambda: warp.warp_dgrid(x, grid, g)).get(
-                            name, lambda: getattr(warp, name)(grid, g))
+                        g = None if name in ("warp_fwd", "warp_fwd_small") else cotangent_like(x)
+                        call = {n: (lambda n=n: getattr(warp, n)(x, grid)) for n in ("warp_fwd", "warp_fwd_small")}
+                        call.update({n: (lambda n=n: getattr(warp, n)(x, grid, g)) for n in ("warp_dgrid", "warp_dgrid_small")})
+                        call.update({n: (lambda n=n: getattr(warp, n)(grid, g))
+                                     for n in ("warp_dx", "warp_dx_scatter", "warp_dx_small")})
+                        fn = call[name]
                         dt = str(dtype)[6:]
-                        nbytes, nflops = warp_work(name, b, c, h, x.element_size())
+                        nbytes, nflops = warp_work(GENERAL_OF.get(name, name), b, c, h, x.element_size())
                         bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
                         row = dict(kernel=name, b=b, c=c, h=h, dtype=dt, flow=kind, s=s,
                                    bound_ms=max(bytes_ms, flops_ms),
@@ -963,13 +971,14 @@ def time_kernel_rows(names, bw: float, flops: float, flows=FLOWS, yardsticks: bo
                             row["sha"] = digest(fn())
                         line = ""
                         if yardsticks and (dt, kind, s) == (LINE_BASIS[name][0], "iid", FLOWS[0]):
-                            if name == "warp_fwd":
+                            if g is None:
                                 xf = x.float()
                                 plain, library = (lambda: grid_sample_bicubic_plain(x, grid),
                                                   lambda: library_grid_sample(xf, grid))
                             else:
                                 xf, gf = x.float(), g.float()
-                                mask = [name != "warp_dgrid", name == "warp_dgrid"]
+                                dgrid = name in ("warp_dgrid", "warp_dgrid_small")
+                                mask = [not dgrid, dgrid]
                                 plain, library = (lambda: grid_sample_bicubic_plain_backward(x, grid, g),
                                                   lambda: library_backward(xf, grid, gf, mask))
                             k1, l1, l2, k2 = cuda_ms(fn), cuda_ms(library, 5), cuda_ms(library, 5), cuda_ms(fn)
@@ -977,15 +986,16 @@ def time_kernel_rows(names, bw: float, flops: float, flows=FLOWS, yardsticks: bo
                             line = f", plain {row['plain_ms']:.4f} ms, library (fp32) {row['library_ms']:.4f} ms"
                         else:
                             row["ms"] = min(cuda_ms(fn), cuda_ms(fn))
-                        if name == "warp_dx_small":  # warp_dx at the same call, in turns with the kernel
-                            general = lambda: warp.warp_dx(grid, g)  # noqa: E731
+                        if name in GENERAL_OF:  # the general kernel at the same call, in turns with the kernel
+                            general = call[GENERAL_OF[name]]
                             g1, g2, k3 = cuda_ms(general), cuda_ms(general), cuda_ms(fn)
                             row.update(ms=min(row["ms"], k3), general_ms=min(g1, g2))
-                            line += f", warp_dx {row['general_ms']:.4f} ms ({row['general_ms'] / row['ms']:.2f}x)"
+                            line += (f", {GENERAL_OF[name]} {row['general_ms']:.4f} ms "
+                                     f"({row['general_ms'] / row['ms']:.2f}x)")
                         if dtype == torch.bfloat16 and s == FLOWS[0]:
                             row["host_us"] = host_us(fn)
                             line += f", wrapper host cost {row['host_us']:.1f} us per call"
-                        if split and name in ("warp_dx_scatter", "warp_dx_small"):
+                        if split and name in SPLIT_KERNELS:
                             row["split"] = kernel_split(fn)
                             line += "; by launch " + ", ".join(f"{k} {v:.4f}" for k, v in row["split"].items())
                         rows.append(row)
@@ -994,7 +1004,7 @@ def time_kernel_rows(names, bw: float, flops: float, flows=FLOWS, yardsticks: bo
                         print(f"time {name} {b}x{c}x{h}x{h} {dt} {kind} s={s}: kernel {row['ms']:.4f} ms, "
                               f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {row['bound_by']}), "
                               f"at {row['bound_ms'] / row['ms']:.1%} of bound{line}", flush=True)
-                        del x, grid, g, fn
+                        del x, grid, g, fn, call
     if "dyn_trip" in names:
         rows += time_dyn_trip_rows(bw, flops, yardsticks, hashes)
     return rows
@@ -1057,9 +1067,9 @@ def time_dyn_trip_rows(bw: float, flops: float, yardsticks: bool = False, hashes
 
 def line_totals(rows) -> dict:
     """Each timed kernel's kernels-line figures: a warp kernel's rows at
-    LINE_BASIS summed (ms, plain, library, bound; warp_dx_small with
-    warp_dx's ms at its calls), each trip-count kernel's row at n =
-    PROBE_PACKS."""
+    LINE_BASIS summed (ms, plain, library, bound; a small-map kernel with
+    its general kernel's ms at its calls), each trip-count kernel's row at n
+    = PROBE_PACKS."""
     totals = {}
     for name, (dtype, shapes) in LINE_BASIS.items():
         picked = [r for r in rows if r["kernel"] == name and r["dtype"] == dtype and r["flow"] == "iid"
@@ -1069,7 +1079,7 @@ def line_totals(rows) -> dict:
         t = {k: sum(r[k] for r in picked) for k in keys}
         t["bound_by"] = "bytes" if {r["bound_by"] for r in picked} == {"bytes"} else "operations"
         totals[name] = t
-        general = f", warp_dx {t['general_ms']:.4f} ms" if "general_ms" in t else ""
+        general = f", {GENERAL_OF.get(name)} {t['general_ms']:.4f} ms" if "general_ms" in t else ""
         print(f"time {name} summed over {len(shapes)} warp(s) ({dtype}, iid s={FLOWS[0]}): kernel {t['ms']:.4f} ms"
               f"{general}, plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms",
               flush=True)
@@ -1124,10 +1134,11 @@ def time_even_512() -> dict:
 def time_kernels(names, root: str) -> int:
     """``python3 chip_smoke.py --time-kernels NAMES [ROOT]``: the named kernels
     (comma-separated, of TIMED_KERNELS, and ``even512``) of the lcgan_torch
-    under ROOT, by ``time_kernel_rows`` (warp_dx_scatter and warp_dx_small
-    split by launch) and ``time_even_512``, printed as one JSON line of rows.
-    Run it on two checkouts in turns, each in its own process, to compare two
-    versions of the kernels on one card, time and output bits."""
+    under ROOT, by ``time_kernel_rows`` (SPLIT_KERNELS split by launch) and
+    ``time_even_512``, each timed warp kernel's ms summed at its kernels-line
+    basis, then one JSON line of rows. Run it on two checkouts in turns, each
+    in its own process, to compare two versions of the kernels on one card,
+    time and output bits."""
     sys.path.insert(0, os.path.abspath(root))
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
@@ -1148,6 +1159,15 @@ def time_kernels(names, root: str) -> int:
     print(f"time-kernels {names} of {os.path.dirname(lcgan_torch.__file__)}", flush=True)
     build_kernels(sorted({src for n in names if n in TIMED_KERNELS for src in TIMED_SOURCES.get(n, (n,))}))
     rows = time_kernel_rows(names, *card_rates(name), hashes=True, split=True)
+    for kernel, (dtype, shapes) in LINE_BASIS.items():
+        picked = [r for r in rows if r["kernel"] == kernel and r["dtype"] == dtype and r["flow"] == "iid"
+                  and r["s"] == FLOWS[0] and (r["b"], r["c"], r["h"]) in shapes]
+        if picked:
+            general = (f", {GENERAL_OF[kernel]} {sum(r['general_ms'] for r in picked):.4f} ms"
+                       if kernel in GENERAL_OF else "")
+            print(f"time {kernel} summed over {len(picked)} warp(s) ({dtype}, iid s={FLOWS[0]}): kernel "
+                  f"{sum(r['ms'] for r in picked):.4f} ms{general}, bound {sum(r['bound_ms'] for r in picked):.4f} ms",
+                  flush=True)
     if "even512" in names:
         rows.append(time_even_512())
     print(json.dumps({"time_kernels": os.path.dirname(lcgan_torch.__file__), "device": name, "rows": rows}), flush=True)
@@ -1213,77 +1233,6 @@ def check_small_kernels() -> dict:
     check(err <= fp32_tol(want) and same, f"warp_dx_small {b}x{c}x{h}x{h} fp32, every pixel on one spot: "
                                           f"max_abs_err {err:.3g} (tol {fp32_tol(want):.3g}), bitwise repeatable {same}")
     return worst
-
-
-def time_small_kernels(bw: float, flops: float) -> dict:
-    """K5 and K6 at the four small maps of one 256² batch of 8 (s = 0.1), in
-    bf16 (the train phase's dtype) and fp32, each beside the general kernel
-    at the same call, the plain version, torch's op on fp32 features (the
-    library call), the bound, and its wrapper's host time per call (K7:
-    time_kernel_rows). Returns each kernel's bf16 row summed over the four
-    maps, with the general kernel's time beside it."""
-    import torch
-
-    from lcgan_torch.ops import warp
-    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain, grid_sample_bicubic_plain_backward
-
-    kernels = ("warp_fwd_small", "warp_dgrid_small")
-    total = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, general_ms=0.0) for n in kernels}
-    bound_by = {n: set() for n in kernels}
-    for b, c, h in SMALL_PATH_WARPS:
-        x32, grid = warp_inputs(b, c, h, 0.1, torch.float32)
-        g32 = cotangent_like(x32)
-        library = dict(warp_fwd_small=lambda: library_grid_sample(x32, grid),
-                       warp_dgrid_small=lambda: library_backward(x32, grid, g32, [False, True]))
-        lib_ms = {n: min(cuda_ms(f, 5), cuda_ms(f, 5)) for n, f in library.items()}
-        n_out = b * h * h
-        for dtype in (torch.bfloat16, torch.float32):
-            x = x32.to(dtype).contiguous(memory_format=torch.channels_last)
-            g = g32.to(dtype).contiguous(memory_format=torch.channels_last)
-            es = x.element_size()
-            groups = -(-c // warp._small_channels(b, c, h, h, x, 1))
-            plain = dict(warp_fwd_small=lambda: grid_sample_bicubic_plain(x, grid),
-                         warp_dgrid_small=lambda: grid_sample_bicubic_plain_backward(x, grid, g))
-            plain_ms = {n: cuda_ms(f, 3) for n, f in plain.items()}
-            calls = dict(
-                warp_fwd_small=(lambda: warp.warp_fwd_small(x, grid), lambda: warp.warp_fwd(x, grid)),
-                warp_dgrid_small=(lambda: warp.warp_dgrid_small(x, grid, g), lambda: warp.warp_dgrid(x, grid, g)),
-            )
-            for name in kernels:
-                kernel, general = calls[name]
-                # turns K, G, G, K; the lower of each pair
-                k1 = cuda_ms(kernel)
-                g1 = cuda_ms(general)
-                g2 = cuda_ms(general)
-                k2 = cuda_ms(kernel)
-                host = host_us(kernel)
-                nbytes, nflops = warp_work(GENERAL_OF[name], b, c, h, es)
-                bytes_ms, flops_ms = nbytes / bw * 1e3, nflops / flops * 1e3
-                row = dict(ms=min(k1, k2), plain_ms=plain_ms[name], library_ms=lib_ms[name],
-                           bound_ms=max(bytes_ms, flops_ms), general_ms=min(g1, g2))
-                extra = ""
-                if name == "warp_dgrid_small" and groups > 1:
-                    # the design's own traffic: each group's fp32 partials written, then read
-                    extra = f", {(nbytes + 2 * groups * n_out * 8) / bw * 1e3:.4f} ms with its {groups} groups' partials"
-                print(f"time {name} {b}x{c}x{h}x{h} {str(dtype)[6:]} s=0.1: kernel {row['ms']:.4f} ms, "
-                      f"{GENERAL_OF[name]} {row['general_ms']:.4f} ms ({row['general_ms'] / row['ms']:.2f}x), "
-                      f"plain {row['plain_ms']:.4f} ms, torch's op (fp32) {row['library_ms']:.4f} ms, "
-                      f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB{extra}), kernel at "
-                      f"{row['bound_ms'] / row['ms']:.1%} of bound; wrapper host cost {host:.1f} us per call",
-                      flush=True)
-                if dtype == torch.bfloat16:
-                    bound_by[name].add("bytes" if bytes_ms >= flops_ms else "operations")
-                    for k in row:
-                        total[name][k] += row[k]
-            del x, g, calls, plain
-        del x32, g32, grid, library
-    for name in kernels:
-        t = total[name]
-        t["bound_by"] = "bytes" if bound_by[name] == {"bytes"} else "operations"
-        print(f"time {name} per 256² batch of 8 (the four 8²-64² warps, bf16): kernel {t['ms']:.4f} ms, "
-              f"{GENERAL_OF[name]} {t['general_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"torch's op (fp32) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms", flush=True)
-    return total
 
 
 def synthetic_jpeg_folder(root: str, n: int, size: int) -> None:
@@ -1831,7 +1780,6 @@ def main() -> int:
     worst = dict(warp_fwd=check_warp_kernel(), **check_backward_kernels(), warp_dx_scatter=check_dx_scatter(),
                  **check_small_kernels())
     times = line_totals(time_kernel_rows(TIMED_KERNELS, bw, flops, flows=FLOWS[:1], yardsticks=True))
-    times.update(time_small_kernels(bw, flops))
     run_generation_path()
     run_training_path()
     check_none_route()

@@ -14,8 +14,9 @@ autograd Function ``BicubicWarp`` (the port of the JAX package's
     features', ``csrc/warp_dx.cu`` at C >= 128 or ``csrc/warp_dx_scatter.cu``
     at C < 128 (the split of the JAX package's ``_vjp_bwd``); the small-map
     route (``small=True``, maps of at most 64²) launches
-    ``csrc/warp_fwd_small.cu`` and ``csrc/warp_dgrid_small.cu``, which hold a
-    channel group's whole map in shared memory, and ``csrc/warp_dx_small.cu``
+    ``csrc/warp_fwd_small.cu`` and ``csrc/warp_dgrid_small.cu``, which take
+    tiles of output pixels, each pixel's weights once and a warp per pixel,
+    and ``csrc/warp_dx_small.cu``
     (the gather of ``warp_dx_scatter.cu`` over an index built once per
     image; on maps of at most 256 pixels a block per image and channel
     group). Or it raises: nothing falls back to the plain versions.
@@ -53,8 +54,8 @@ _SIGNATURES = {
     "warp_dgrid": ("lcgan_warp_dgrid", [_PTR] * 4 + [_INT] * 8 + [_PTR]),
     "warp_dx": ("lcgan_warp_dx", [_PTR] * 4 + [_INT] * 6 + [_PTR]),
     "warp_dx_scatter": ("lcgan_warp_dx_scatter", [_PTR] * 3 + [ctypes.c_longlong, _PTR] + [_INT] * 6 + [_PTR]),
-    "warp_fwd_small": ("lcgan_warp_fwd_small", [_PTR] * 3 + [_INT] * 9 + [_PTR]),
-    "warp_dgrid_small": ("lcgan_warp_dgrid_small", [_PTR] * 5 + [_INT] * 9 + [_PTR]),
+    "warp_fwd_small": ("lcgan_warp_fwd_small", [_PTR] * 3 + [_INT] * 11 + [_PTR]),
+    "warp_dgrid_small": ("lcgan_warp_dgrid_small", [_PTR] * 4 + [_INT] * 10 + [_PTR]),
     "warp_dx_small": ("lcgan_warp_dx_small", [_PTR] * 4 + [_INT] * 11 + [_PTR]),
 }
 _DX_SPLIT_C = 128  # dx kernel by channel count, as _vjp_bwd splits it (lcgan_tpu/ops/warp_pallas.py)
@@ -63,6 +64,13 @@ _SMALL_MAX = 64  # the small-map kernels take maps of at most 64²
 _SMALL_SMEM = 229_376  # shared memory a small-map block may take: kMaxSmem in csrc/warp_small.cuh
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 _SMALL_MIN_BLOCKS = 2 * _SMS  # about two blocks per SM
+# warp_fwd_small's and warp_dgrid_small's tiles (csrc/warp_small.cuh): output pixels of a tile at most,
+# a warp per pixel
+_SMALL_TILE_PX = 64  # kMaxTilePx
+_SMALL_TILE_WARPS = 8  # kTileWarps
+_SMALL_TILE_SIDE = 8  # rows and columns of a tile before it is halved to fill the card
+_SMALL_FWD_CHUNK = 1024  # channel bytes of a pixel a forward block takes: two 16-byte vectors per lane of a warp,
+_SMALL_FWD_MIN_CHUNK = 512  # halved to one per lane where the grid is short of blocks
 # warp_dx_small's gather (csrc/warp_dx_gather.cuh, csrc/warp_dx_small.cu): threads and tile sides of a block
 _GATHER_THREADS = 256  # kGatherThreads
 _GATHER_MAX_TILE = 16  # kMaxTile
@@ -77,7 +85,7 @@ _DX_SMALL_LOCAL = 256  # maps of at most this many pixels: one launch, a block p
 # lcgan_tpu/ops/warp_pallas._small_geom/_small_groups/_use_small), copied.
 # The TPU's VMEM budget decides only which maps take the small route, so
 # that both packages route a run alike; the CUDA kernels pick their own
-# channel groups (_small_channels).
+# launches (_small_tile_geometry, _dx_small_geometry).
 # ----------------------------------------------------------------------------
 
 _UNROLL = 2  # packs per band-loop body (warp_pallas._unroll)
@@ -292,18 +300,53 @@ def _check_small_map(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} takes maps of at most {_SMALL_MAX}², got {tuple(t.shape[2:])}")
 
 
-def _small_channels(b: int, c: int, h: int, w: int, t: torch.Tensor, vec: int) -> int:
-    """Channels per block of the small-map forward and grid-gradient kernels
-    (one block per batch element and channel group): C, halved while the
-    group's h·w map overflows a block's shared memory or the grid has fewer
-    than about two blocks per SM; a multiple of the 16-byte vector's channels
-    on the vector path."""
-    return _channel_group(b, c, h, w, t.element_size(), vec)
+@dataclasses.dataclass(frozen=True)
+class SmallTileGeometry:
+    """The launch of ``warp_fwd_small`` or ``warp_dgrid_small``: one block per
+    image, tile of ``th`` x ``tw`` output pixels and chunk of ``cv`` channel
+    vectors (of 16 bytes, or single channels on the scalar path; all of them
+    for the grid gradient, whose channel sum stays in the block)."""
+
+    th: int
+    tw: int
+    cv: int
+
+
+def _small_tile_geometry(b: int, c: int, h: int, w: int, hg: int, wg: int, es: int, vec: int,
+                         grad: bool) -> SmallTileGeometry:
+    """The launch of the small-map forward (``grad`` False) or grid-gradient
+    kernel for a (b, c, h, w) map of ``es``-byte elements (16-byte vectors if
+    ``vec``) and an (hg, wg) grid: tiles of 8 x 8 output pixels, halved while
+    the grid has fewer blocks than the card has SMs (two fit an SM) and a
+    tile has more pixels than a block has warps; the gradient's blocks take
+    all of a pixel's channels, the forward's _SMALL_FWD_CHUNK bytes of them,
+    halved down to _SMALL_FWD_MIN_CHUNK while the grid is still short of
+    blocks."""
+    step = 16 // es if vec else 1
+    vbytes = step * es  # bytes of a vector
+    nvec = c // step
+    cv = nvec if grad else min(nvec, max(1, _SMALL_FWD_CHUNK // vbytes))
+
+    def blocks():
+        return b * -(-hg // th) * -(-wg // tw) * -(-nvec // cv)
+
+    th, tw = min(hg, _SMALL_TILE_SIDE), min(wg, _SMALL_TILE_SIDE)
+    while blocks() < _SMS and th * tw > _SMALL_TILE_WARPS:
+        if th >= tw:
+            th = (th + 1) // 2
+        else:
+            tw = (tw + 1) // 2
+    while not grad and blocks() < _SMS and cv * vbytes > _SMALL_FWD_MIN_CHUNK:
+        cv = max(1, cv // 2)
+    return SmallTileGeometry(th=th, tw=tw, cv=cv)
 
 
 def _channel_group(b: int, c: int, h: int, w: int, es: int, vec: int, min_blocks: int = _SMALL_MIN_BLOCKS) -> int:
-    """``_small_channels`` for ``es``-byte elements and a grid of at least
-    ``min_blocks`` blocks."""
+    """Channels per block of ``warp_dx_small``'s whole-map blocks (one per
+    batch element and channel group) for ``es``-byte elements: C, halved
+    while the group's h·w map overflows a block's shared memory or the grid
+    has fewer than ``min_blocks`` blocks; a multiple of the 16-byte vector's
+    channels on the vector path."""
     step = 16 // es if vec else 1
     cg = c
     while cg > step and (h * w * cg * es > _SMALL_SMEM or b * -(-c // cg) < min_blocks):
@@ -394,18 +437,18 @@ def warp_fwd_small(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
         return out
     fn = _fn("warp_fwd_small")
     vec = _vec(x, out)
-    cg = _small_channels(b, c, h, w, x, vec)
+    geo = _small_tile_geometry(b, c, h, w, hg, wg, x.element_size(), vec, grad=False)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), grid.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], vec, b, c, h, w, hg, wg, cg,
-                _stream(x))
+        rc = fn(x.data_ptr(), grid.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], vec, b, c, h, w, hg, wg, geo.th,
+                geo.tw, geo.cv, _stream(x))
     _build.raise_on(rc, "warp_fwd_small")
     warp_fwd_small.launches += 1
     return out
 
 
 def warp_dgrid_small(x: torch.Tensor, grid: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA small-map grid-gradient kernels (the per-group partial
-    sums and their fixed-order sum). Counts its launches in
+    """Launch the CUDA small-map grid-gradient kernel (one launch; each
+    block sums over all channels of its pixels). Counts its launches in
     ``warp_dgrid_small.launches``.
 
     The arguments and the result are ``warp_dgrid``'s, with x's map at most
@@ -425,12 +468,10 @@ def warp_dgrid_small(x: torch.Tensor, grid: torch.Tensor, g: torch.Tensor) -> to
         return dgrid.zero_()
     fn = _fn("warp_dgrid_small")
     vec = _vec(x, g)
-    cg = _small_channels(b, c, h, w, x, vec)
-    groups = -(-c // cg)
-    partial = torch.empty(groups * dgrid.numel() if groups > 1 else 0, dtype=torch.float32, device=x.device)
+    geo = _small_tile_geometry(b, c, h, w, hg, wg, x.element_size(), vec, grad=True)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), grid.data_ptr(), g.data_ptr(), partial.data_ptr(), dgrid.data_ptr(), _DTYPES[x.dtype],
-                vec, b, c, h, w, hg, wg, cg, _stream(x))
+        rc = fn(x.data_ptr(), grid.data_ptr(), g.data_ptr(), dgrid.data_ptr(), _DTYPES[x.dtype], vec, b, c, h, w,
+                hg, wg, geo.th, geo.tw, _stream(x))
     _build.raise_on(rc, "warp_dgrid_small")
     warp_dgrid_small.launches += 1
     return dgrid

@@ -522,6 +522,78 @@ def test_small_backward_kernels_are_deterministic(h, dtype, dev):
     assert torch.equal(warp.warp_dx_small(grid, g), warp.warp_dx_small(grid, g))
 
 
+# (b, c, h, w) of warp_fwd_small's and warp_dgrid_small's own cases: the
+# four small maps of a 256² batch (8 x 8 tiles at 64², smaller tiles below),
+# and the scalar path (C = 5) on a 40² map of several tiles
+SMALL_TILE_SHAPES = [(8, 512, 8, 8), (8, 512, 16, 16), (8, 512, 32, 32), (8, 512, 64, 64), (2, 5, 40, 40)]
+
+
+def assert_fwd_dgrid_small_match_plain(x, grid, g):
+    """warp_fwd_small against the plain forward (1e-5 in fp32, one bf16 ulp
+    of the output scale in bf16), warp_dgrid_small against the plain
+    backward's grid gradient (fp32_tol), and both bitwise repeatable."""
+    out, dgrid = warp.warp_fwd_small(x, grid), warp.warp_dgrid_small(x, grid, g)
+    assert_fwd_matches_plain(out, grid_sample_bicubic_plain(x, grid))
+    ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)[1]
+    assert dgrid.dtype == torch.float32 and (dgrid - ref_dgrid).abs().max().item() <= fp32_tol(ref_dgrid)
+    assert torch.equal(out, warp.warp_fwd_small(x, grid)) and torch.equal(dgrid, warp.warp_dgrid_small(x, grid, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SMALL_TILE_SHAPES)
+def test_fwd_dgrid_small_flows_and_thrown_pixel(shape, dtype, dev):
+    """warp_fwd_small and warp_dgrid_small against the plain versions on the
+    iid flow (s = 0.1 and far beyond the bound, 0.6), the smooth flow
+    (neighbours move together), and with one pixel thrown across the map (a
+    tile's taps far outside its window, read from device memory)."""
+    b, c, h, w = shape
+    for x, grid in (case(*shape, 0.1, dtype, dev), case(*shape, 0.6, dtype, dev),
+                    smooth_case(*shape, 0.1, dtype, dev)):
+        assert_fwd_dgrid_small_match_plain(x, grid, cotangent(x))
+    grid[0, h - 1, 0] = torch.tensor([0.9, -0.95], device=dev)
+    grid[-1, h // 3, w // 2] = torch.tensor([-0.7, 0.8], device=dev)
+    assert_fwd_dgrid_small_match_plain(x, grid, cotangent(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SMALL_TILE_SHAPES)
+def test_fwd_dgrid_small_taps_off_the_image(shape, dtype, dev):
+    """Every tap of every pixel off the image (a grid beyond each edge, and
+    far away): zeros from both kernels; the first image's pixels by its
+    corner with some taps on it, the second image's half off it: against the
+    plain versions."""
+    b, c, h, w = shape
+    x, grid = case(*shape, 0.0, dtype, dev)
+    g = cotangent(x)
+    for off in (-1.5, 1.5, 1e30):
+        far = torch.full_like(grid, off)
+        assert torch.count_nonzero(warp.warp_fwd_small(x, far)) == 0
+        assert torch.count_nonzero(warp.warp_dgrid_small(x, far, g)) == 0
+    grid[0] = torch.tensor([-0.97, -0.99], device=dev)
+    grid[-1, : h // 2] = torch.tensor([1.2, 0.3], device=dev)
+    assert_fwd_dgrid_small_match_plain(x, grid, g)
+
+
+@pytest.mark.parametrize("h", [8, 16, 32, 64])
+def test_dgrid_small_launches_per_call(h, dev):
+    """One device kernel per warp_dgrid_small call, by the profiler (no
+    timing): the channel sum stays inside each block, so there is no partial
+    sum and no second launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, grid = case(8, 512, h, h, 0.1, torch.bfloat16, dev)
+    g = cotangent(x)
+    warp.warp_dgrid_small(x, grid, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warp.warp_dgrid_small(x, grid, g)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+             for _ in range(e.count)]
+    assert len(names) == 1 and "warp_dgrid_small_kernel" in names[0], names
+
+
 # (b, c, h, w) of warp_dx_small's own cases: the four small maps of a 256²
 # batch (one launch at 8² and 16², index and gather above), and the scalar
 # path (C = 5) on a 40² map of several tiles

@@ -186,21 +186,65 @@ def test_small_kernel_wrappers_refuse_cpu_tensors():
         t_warp.warp_dx_small(torch.from_numpy(grid), gt)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_small_channel_groups(dtype):
-    """The forward and grid-gradient kernels' own groups: C halved until the
-    grid has enough blocks (about two per SM of an H100) and the map fits a
-    block's shared memory, in whole 16-byte vectors."""
-    t = torch.empty(0, dtype=dtype)
-    for h in (8, 16, 32, 64):
-        cg = t_warp._small_channels(8, 512, h, h, t, 1)
-        assert cg == 8
-        assert h * h * cg * t.element_size() <= t_warp._SMALL_SMEM
-    assert t_warp._small_channels(2, 5, 12, 12, t, 0) == 1  # the scalar path: any C
-    assert t_warp._small_channels(1024, 512, 8, 8, t, 1) == 512  # enough blocks from the batch alone
-
-
 CSRC = Path(t_warp.__file__).resolve().parent / "csrc"
+# (b, c, h, w, hg, wg, vec) of warp_fwd_small's and warp_dgrid_small's
+# launches: the four small maps of a 256² batch (C = 512) on the vector path,
+# odd C and odd maps on the scalar path, and grids of another size than the
+# map (fewer and more output pixels)
+SMALL_TILE_LAUNCHES = ([(8, 512, h, h, h, h, 1) for h in (8, 16, 32, 64)]
+                       + [(2, 5, 12, 12, 12, 12, 0), (1, 3, 9, 7, 9, 7, 0), (2, 16, 16, 16, 5, 11, 1),
+                          (2, 24, 8, 8, 20, 20, 1)])
+
+
+def test_small_tile_geometry_matches_the_kernel_sources():
+    """The host's copies of the tile kernels' constants (csrc/warp_small.cuh),
+    and the kernels' decoding of the block index through tile_block."""
+    small = (CSRC / "warp_small.cuh").read_text()
+    threads = int(re.search(r"constexpr int kTileThreads = (\d+);", small)[1])
+    assert re.search(r"constexpr int kMaxTilePx = (\d+);", small)[1] == str(t_warp._SMALL_TILE_PX)
+    assert "constexpr int kTileWarps = kTileThreads / 32;" in small and threads // 32 == t_warp._SMALL_TILE_WARPS
+    assert "const int chunk = bid % nchunks;" in small and "const int tile = bid % ntiles;" in small
+    assert "tile_block(Hg, Wg, th, tw, tiles_x, ntiles, cv, nchunks, C / VEC)" in (CSRC / "warp_fwd_small.cu").read_text()
+    assert "tile_block(Hg, Wg, th, tw, tiles_x, ntiles, nvec, 1, nvec)" in (CSRC / "warp_dgrid_small.cu").read_text()
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["fwd", "dgrid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w,hg,wg,vec", SMALL_TILE_LAUNCHES)
+def test_small_tile_geometry_covers_each_pixel_and_channel_once(b, c, h, w, hg, wg, vec, dtype, grad):
+    """warp_fwd_small's and warp_dgrid_small's tiles and chunks, decoded from
+    the block index as the kernels decode it (tile_block in
+    csrc/warp_small.cuh), cover every (image, output pixel, channel vector)
+    exactly once; a tile has at most 64 pixels; the grid gradient's blocks
+    take all of a pixel's channels (its channel sum stays in the block); the
+    forward's chunks are 512-1024 bytes of a pixel where C allows."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    step = 16 // es if vec else 1  # channels of a vector
+    nvec = c // step
+    geo = t_warp._small_tile_geometry(b, c, h, w, hg, wg, es, vec, grad)
+    assert 1 <= geo.th * geo.tw <= t_warp._SMALL_TILE_PX and geo.th <= hg and geo.tw <= wg
+    if grad:
+        assert geo.cv == nvec
+    else:  # 1024 bytes of a pixel, halved down to 512 to fill the card, or all of a narrower pixel
+        assert min(nvec * step * es, t_warp._SMALL_FWD_MIN_CHUNK) <= geo.cv * step * es <= t_warp._SMALL_FWD_CHUNK
+    nchunks = -(-nvec // geo.cv)
+    tiles_x = -(-wg // geo.tw)
+    ntiles = tiles_x * -(-hg // geo.th)
+    blocks = b * ntiles * nchunks
+    seen = np.zeros((b, hg, wg, nvec), np.uint8)
+    for bid in range(blocks):
+        chunk, rest = bid % nchunks, bid // nchunks
+        tile, image = rest % ntiles, rest // ntiles
+        ty = tile // tiles_x
+        r0, q0 = ty * geo.th, (tile - ty * tiles_x) * geo.tw
+        th, tw = min(geo.th, hg - r0), min(geo.tw, wg - q0)
+        v0 = chunk * geo.cv
+        cw = min(geo.cv, nvec - v0)
+        assert th >= 1 and tw >= 1 and cw >= 1
+        seen[image, r0:r0 + th, q0:q0 + tw, v0:v0 + cw] += 1
+    assert (seen == 1).all()
+
+
 # (b, c, h, w, vec) of warp_dx_small's launches: the four small maps of a 256²
 # batch (C = 512) on the vector path, and odd C on the scalar path
 DX_SMALL_LAUNCHES = ([(8, 512, h, h, 1) for h in (8, 16, 32, 64)]
