@@ -7,6 +7,7 @@
         # small-map kernel beside its general kernel, dyn_trip's two arms beside torch.mm),
         # and the 512² mix and even-step profile (even512)
     python3 chip_smoke.py --time-backward [ROOT]  # shorthand for --time-kernels warp_dgrid,warp_dx [ROOT]
+    python3 chip_smoke.py --cli-worker OUT.json -- CLI_ARGS  # step 8's rank under torchrun
 
 1. Builds every CUDA kernel of the port from lcgan_torch/ops/csrc with nvcc
    for sm_90a, one nvcc per source, in parallel: warp_fwd, warp_dgrid,
@@ -108,7 +109,28 @@
    and 128 in turns (images/s each), and an even-step profile of the small
    route with the warp kernels' share. Steps 4-6 run with the default
    (128) and must launch no small-map kernel.
-8. The probes (lcgan_torch.tools), whose path is their own entry points:
+8. Drives this slice's paths, data parallelism, fid_eval and
+   video_generation, on the 256² folder of step 7 at the flagship recipe
+   (default route). The train phase, epochs 0-3, under `torchrun
+   --standalone --nproc_per_node=1` (NCCL, world size 1: a fresh process
+   running `chip_smoke.py --cli-worker`, which calls `lcgan_torch.cli.main`
+   with the counts set to 0 just before and read just after, and times the
+   all-reduce calls) and through the CLI in this process without a group,
+   counted the same way (warp_fwd 72, warp_dgrid and warp_dx 48 each);
+   both runs' files must exist, their log.txt lines agree and their state.pt
+   be bitwise equal (deterministic mode). Then, per layer, the 256² mix on
+   one synthetic batch without and with a one-rank NCCL group in this
+   process, in turns (P, G, G, P), images/s and the all-reduce calls' host
+   µs, and mean_all_reduce's host µs by part and device ms on G's and D's
+   gradients. Then `--phase fid_eval` on the torchrun run
+   (random Inception weights, 32 reals and 32 fakes; warp_fwd 24): fid.txt,
+   best_fid.txt and state_best.pt (the evaluated state); a second call must
+   rewrite state_best.pt only if its FID is lower; `--best` generation from
+   state_best.pt alone; Inception's features on the card against the CPU on
+   2 images (TF32 off; 1e-4 of their scale) and its images/s at 299² fp32.
+   Then `--phase video_generation --ctrl_dim 0 --num_videos 1`: one mp4 of
+   60 frames (warp_fwd 360), frames/s.
+9. The probes (lcgan_torch.tools), whose path is their own entry points:
    gather_probe against take_along_dim on the (256, 128) fp32 tile,
    exactly, for random, all-0 and all-255 indices; dyn_trip_static and
    dyn_trip_dyn against an fp64 sum at 16 packs (n = 16, 8 and, for the
@@ -120,10 +142,10 @@
    just before and read just after (gather_probe 41 launches, dyn_trip_static
    4130, dyn_trip_dyn 8258), and once more as `python -m` in a fresh
    process, and checks the rows A, B, C and the GO / NO-GO line.
-9. Prints the whole run's wall time, each kernel's time and bound per
+10. Prints the whole run's wall time, each kernel's time and bound per
    launch (a row's sums over the calls it times) with launches x (time -
    bound), the kernels as one JSON line (launches from step 6, from step 7
-   for the small-map kernels and from step 8 for the probes'), the card's
+   for the small-map kernels and from step 9 for the probes'), the card's
    name and power limit, and last the ok line.
    Exits nonzero, printing no result, on any failure and when no GPU is
    present.
@@ -156,7 +178,7 @@ CARD_RATES = [
 MAIN_PATH_WARPS = [(8, 512, 8), (8, 512, 16), (8, 512, 32), (8, 512, 64), (8, 256, 128), (8, 128, 256)]
 FLOWS = [0.1, 0.03]
 FP32_TOL = 1e-5
-MIX_WINDOWS = 5  # timed passes over the training schedule's 8-iteration mix
+MIX_WINDOWS = 3  # timed passes over the training schedule's 8-iteration mix
 # (B, C, H) of the narrow-map warps (C < 128): the top block of the 512²
 # recipe, and of the 1024² one at its per-GPU batch of 4
 SCATTER_SHAPES = [(8, 64, 512), (4, 32, 1024)]
@@ -165,7 +187,7 @@ SCATTER_FLOWS = [0.1, 0.03, 0.6]  # 0.6: far beyond the tanh bound
 # 512² and 1024² recipes
 FWD_SHAPES = MAIN_PATH_WARPS + SCATTER_SHAPES
 FLOW_KINDS = ("iid", "smooth")  # warp_inputs' flows
-MIX_WINDOWS_512 = 3
+MIX_WINDOWS_512 = 2
 GENERAL_KERNELS = ("warp_fwd", "warp_dgrid", "warp_dx", "warp_dx_scatter")
 SMALL_KERNELS = ("warp_fwd_small", "warp_dgrid_small", "warp_dx_small")
 KERNELS = GENERAL_KERNELS + SMALL_KERNELS
@@ -175,7 +197,7 @@ GENERAL_OF = dict(warp_fwd_small="warp_fwd", warp_dgrid_small="warp_dgrid", warp
 # tiny odd-C map that takes the kernels' scalar path
 SMALL_PATH_WARPS = MAIN_PATH_WARPS[:4]
 SMALL_CHECK_SHAPES = SMALL_PATH_WARPS + [(2, 5, 12)]
-MIX_WINDOWS_ROUTES = 4  # timed windows of the 256² mix per warp route, in turns
+MIX_WINDOWS_ROUTES = 2  # timed windows of the 256² mix per warp route, in turns
 # the probes' kernels (lcgan_torch.tools), their sources, and the TPU kernels they replace
 PROBE_KERNELS = ("gather_probe", "dyn_trip_static", "dyn_trip_dyn")
 PROBE_SOURCE = dict(gather_probe="gather_probe", dyn_trip_static="dyn_trip_probe", dyn_trip_dyn="dyn_trip_probe")
@@ -1476,16 +1498,11 @@ def check_resume_512(run: str) -> None:
     resumed = trainer.init_state()
     load_state(os.path.join(run, "model_resumed", "state.pt"), resumed)
     got = resumed.state_dict()
-    bad = [f"{part}.{k}" for part in ("generator", "discriminator", "ema")
-           for k, v in want[part].items() if not torch.equal(got[part][k], v)]
-    bad += [f"{opt}.v.{k}" for opt in ("g_opt", "d_opt") for k, v in want[opt]["v"].items()
-            if not torch.equal(got[opt]["v"][k], v)]
+    bad = checkpoint_mismatches(want, got)
     n_leaves = sum(len(want[p]) for p in ("generator", "discriminator", "ema")) + len(want["g_opt"]["v"]) + len(want["d_opt"]["v"])
-    same_rest = (got["step"] == want["step"] == n + m and got["g_opt"]["count"] == want["g_opt"]["count"]
-                 and got["d_opt"]["count"] == want["d_opt"]["count"] and torch.equal(got["rng"], want["rng"]))
-    check(not bad and same_rest, f"bit-exact resume at 512² in a fresh process (epochs 0-1 | 2-3): {n_leaves} tensors, "
-                                 f"mismatches {bad[:5]}, step/counts/rng equal {same_rest} "
-                                 f"({time.perf_counter() - t0:.1f} s)")
+    check(not bad and got["step"] == n + m, f"bit-exact resume at 512² in a fresh process (epochs 0-1 | 2-3): "
+                                            f"{n_leaves} tensors, step {got['step']}, counts and rng; mismatches "
+                                            f"{bad[:5]} ({time.perf_counter() - t0:.1f} s)")
     del resumed, trainer
     torch.cuda.empty_cache()
 
@@ -1611,6 +1628,338 @@ def compare_routes_256() -> None:
                     iters=2, top=12, what="even train step at 256², warp_pallas_min_res 8")
     del runs, trainer, state, batch
     torch.cuda.empty_cache()
+
+
+TRAIN_256 = ["--img_resolution", "256", "--batch_size", "8", "--freezeD_layer", "5", "--num_data_workers", "4"]
+# epochs 0-3 of the 256² recipe (even, odd + R1, even, odd; unfrozen), six blocks of C >= 128:
+# a G forward per block is one warp_fwd, a G backward one warp_dgrid and one warp_dx
+EXPECT_256 = dict(dict.fromkeys(KERNELS, 0), warp_fwd=6 * (4 + 2 + 4 + 2), warp_dgrid=6 * (3 + 1 + 3 + 1),
+                  warp_dx=6 * (3 + 1 + 3 + 1))
+DP_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class AllReduceTimer:
+    """Wraps lcgan_torch.parallel.mean_all_reduce (the train step and the
+    generator look it up on the module at each call): counts the calls made
+    under a process group and their host time, and records the backend."""
+
+    def __init__(self):
+        from lcgan_torch import parallel
+
+        self.parallel, self.inner = parallel, parallel.mean_all_reduce
+        self.calls, self.seconds, self.backend, self.world = 0, 0.0, None, None
+
+    def __enter__(self):
+        def timed(tensors):
+            t0 = time.perf_counter()
+            self.inner(tensors)
+            if self.parallel.initialized():
+                import torch.distributed as dist
+
+                self.calls += 1
+                self.seconds += time.perf_counter() - t0
+                self.backend, self.world = str(dist.get_backend()), dist.get_world_size()
+
+        self.parallel.mean_all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.parallel.mean_all_reduce = self.inner
+
+
+def cli_worker(out: str, argv) -> int:
+    """A fresh process's ``lcgan_torch.cli.main(argv)`` (plain, or as a rank
+    under torchrun), its kernel launches counted from 0 and its all-reduce
+    calls timed; rank 0 writes them to ``out`` as JSON."""
+    import torch
+
+    from lcgan_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launches()
+    t0 = time.perf_counter()
+    with AllReduceTimer() as timer:
+        run_cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if int(os.environ.get("RANK", 0)) == 0:
+        with open(out, "w") as f:
+            json.dump(dict(launches=read_launches(), seconds=seconds, allreduce_calls=timer.calls,
+                           allreduce_s=timer.seconds, backend=timer.backend, world=timer.world,
+                           group_left=parallel.initialized()), f)
+    return 0
+
+
+def run_torchrun_worker(argv, out: str) -> dict:
+    """cli_worker in a fresh process under ``torchrun --standalone
+    --nproc_per_node=1`` (``python -m torch.distributed.run``; NCCL)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           os.path.abspath(__file__), "--cli-worker", out, "--", *argv]
+    env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, env=env)
+    for line in proc.stdout.splitlines():
+        if line.startswith("  | "):
+            print(f"  torchrun {line}", flush=True)
+    if proc.returncode != 0 or not os.path.exists(out):
+        check(False, f"torchrun cli worker (rc {proc.returncode}): {proc.stderr[-3000:]}")
+        return {}
+    with open(out) as f:
+        return json.load(f)
+
+
+def read_checkpoint(path: str) -> dict:
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def checkpoint_mismatches(a: dict, b: dict) -> list:
+    """Tensors and counters of two full-state checkpoints that differ."""
+    import torch
+
+    bad = [f"{part}.{k}" for part in ("generator", "discriminator", "ema") for k, v in a[part].items()
+           if not torch.equal(b[part][k], v)]
+    bad += [f"{opt}.v.{k}" for opt in ("g_opt", "d_opt") for k, v in a[opt]["v"].items()
+            if not torch.equal(b[opt]["v"][k], v)]
+    bad += [f"{opt}.count" for opt in ("g_opt", "d_opt") if a[opt]["count"] != b[opt]["count"]]
+    bad += ["step"] * (a["step"] != b["step"]) + ["rng"] * (not torch.equal(a["rng"], b["rng"]))
+    return bad
+
+
+def run_dp_train(data: str, root: str) -> str:
+    """Data parallelism at world size 1: the 256² train phase, epochs 0-3,
+    through ``torchrun --standalone --nproc_per_node=1`` (NCCL, a fresh
+    process) and through the CLI without a process group (this process),
+    both in deterministic mode from the same seed: the same files, the same
+    log lines, a bitwise-equal checkpoint. Returns the torchrun run's
+    directory."""
+    import torch
+
+    runs = {}
+    for torchrun in (False, True):
+        run = os.path.join(root, "dp" if torchrun else "plain")
+        argv = ["--phase", "train", "--dataset_path", data, "--model_name", run, *TRAIN_256,
+                "--save_interval", "3", "--print_interval", "1", "--show_interval", "1000", "--epoch", "3"]
+        if torchrun:
+            res = run_torchrun_worker(argv, os.path.join(root, "dp.json"))
+            if not res:
+                return ""
+        else:
+            reset_launches()
+            t0 = time.perf_counter()
+            with AllReduceTimer() as timer:
+                run_cli(argv)
+            torch.cuda.synchronize()
+            res = dict(launches=read_launches(), seconds=time.perf_counter() - t0, allreduce_calls=timer.calls)
+        runs[torchrun] = (run, res)
+        what = "torchrun --nproc_per_node=1" if torchrun else "plain"
+        print(f"DP world size 1: {what} train phase, 256², epochs 0-3, in {res['seconds']:.3f} s "
+              f"({'a fresh process: ' if torchrun else ''}first calls, data and one save included)", flush=True)
+        for name, n in res["launches"].items():
+            check(n == EXPECT_256[name], f"{name} launches on the {what} 256² train phase, epochs 0-3: {n} "
+                                         f"(expect {EXPECT_256[name]})")
+    (plain, p), (dp, d) = runs[False], runs[True]
+    check(d["backend"] == "nccl" and d["world"] == 1 and not d["group_left"] and p["allreduce_calls"] == 0,
+          f"torchrun run: process group {d['backend']} at world size {d['world']}, {d['allreduce_calls']} all-reduce "
+          f"calls ({d['allreduce_calls'] / 4:.1f} an iteration, {d['allreduce_s'] / 4 * 1e6:.1f} host µs an iteration, "
+          f"the communicator's setup in the first), destroyed at the end of the phase: {not d['group_left']}; "
+          f"the plain run made {p['allreduce_calls']}")
+    files = {f: (os.path.exists(os.path.join(plain, f)), os.path.exists(os.path.join(dp, f)))
+             for f in ("args.txt", "log.txt", "epoch.txt", "model/state.pt")}
+    check(all(a and b for a, b in files.values()), f"torchrun and plain runs write the same files {files}")
+    lines = [log_epochs(r) for r in (plain, dp)]
+    check(lines[0] is not None and lines[0] == lines[1] and [e for e, _, _ in lines[0]] == [0, 1, 2, 3],
+          f"log.txt of the torchrun run equals the plain run's, epochs 0-3 (losses {lines[1]})")
+    epochs = [open(os.path.join(r, "epoch.txt")).read().strip() for r in (plain, dp)]
+    check(epochs == ["3", "3"], f"epoch.txt of both runs: {epochs}")
+    want, got = (read_checkpoint(os.path.join(r, "model", "state.pt")) for r in (plain, dp))
+    bad = checkpoint_mismatches(want, got)
+    n = sum(len(want[k]) for k in ("generator", "discriminator", "ema"))
+    check(not bad, f"torchrun checkpoint bitwise equal to the plain run's (deterministic mode): {n} G/D/EMA "
+                   f"tensors, both Adam trees, step and rng; mismatches {bad[:5]}")
+    return dp
+
+
+@contextlib.contextmanager
+def torchrun_env():
+    """torchrun's environment for this process at world size 1, removed after."""
+    saved = {k: os.environ.get(k) for k in DP_ENV}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def compare_dp_mix_256() -> None:
+    """Per layer: windows of the 8-iteration mix at 256² on one synthetic
+    batch without and with a one-rank NCCL group, in turns (P, G, G, P), in
+    one process; images/s each and the host µs of the all-reduce calls."""
+    import torch
+
+    from lcgan_torch import parallel
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.steps import Trainer
+
+    cfg = Config(model_name="chip_smoke_dp", img_resolution=256, batch_size=8, freezeD_start=10**9, device="cuda")
+    trainer = Trainer(cfg)
+    state = trainer.init_state()
+    batch = synthetic_batch(cfg, trainer.device)
+
+    def window():
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for epoch in range(8):
+            state, _, _ = trainer.train_iteration(state, batch, epoch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    window()  # first calls
+    windows = dict(plain=[window()], group=[])
+    with torchrun_env(), parallel.process_group("on", "cuda"):
+        check(parallel.initialized() and parallel.world_size() == 1, "one-rank NCCL group in this process")
+        state, _, _ = trainer.train_iteration(state, batch, 0)  # the communicator's first call
+        with AllReduceTimer() as timer:
+            windows["group"] += [window(), window()]
+    windows["plain"].append(window())
+    for name, ws in windows.items():
+        n_img = len(ws) * 8 * cfg.batch_size
+        print(f"train throughput at 256², 8-iteration mix, {'with a one-rank NCCL group' if name == 'group' else 'no process group'}, "
+              f"{len(ws)} windows in turns (P, G, G, P): {n_img} images in {sum(ws):.3f} s = {n_img / sum(ws):.2f} images/s "
+              f"(windows {', '.join(f'{w * 1e3:.1f}' for w in ws)} ms)", flush=True)
+    iters = 8 * len(windows["group"])
+    check(timer.calls == iters * 5 and timer.backend == "nccl",
+          f"all-reduce calls in the group's windows: {timer.calls} (expect {iters * 5}: G, D and the w-avg of each "
+          f"training-mode G forward), {timer.backend}; host {timer.seconds / iters * 1e6:.1f} µs an iteration, "
+          f"{timer.seconds / max(timer.calls, 1) * 1e6:.1f} µs a call")
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+
+
+def run_fid_eval(run: str) -> None:
+    """fid_eval on the torchrun run's checkpoint (flagship 256² generator,
+    random Inception weights, 32 reals and 32 fakes); again, which must not
+    rewrite state_best.pt unless its FID is lower; --best generation from
+    state_best.pt alone; Inception's card features against the CPU's."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.data.dataset import ImageFolderDataset
+    from lcgan_torch.eval.fid import fp32_convs
+    from lcgan_torch.eval.inception import InceptionV3FID
+
+    argv = ["--phase", "fid_eval", "--model_name", run]
+    reset_launches()
+    t0 = time.perf_counter()
+    run_cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    best_pt = os.path.join(run, "model", "state_best.pt")
+    files = {f: os.path.exists(os.path.join(run, f)) for f in ("fid.txt", "best_fid.txt", "model/state_best.pt")}
+    check(all(files.values()), f"fid_eval files {files}")
+    if not all(files.values()):
+        return
+    with open(os.path.join(run, "fid.txt")) as f:
+        text = f.read()
+    first = float(text[4:].strip()) if text.startswith("FID:") and text.endswith(" \n") else float("nan")
+    print(f"fid_eval: FID {first} (random Inception weights: not comparable to the protocol's) in {seconds:.3f} s "
+          "(Inception built and its weights drawn, 32 reals decoded, 32 fakes, both through Inception)", flush=True)
+    check(math.isfinite(first) and first >= 0, f"fid.txt holds a finite FID: {text!r}")
+    want = dict(dict.fromkeys(KERNELS, 0), warp_fwd=6 * 4)  # 4 batches of fakes, 6 blocks
+    check(launches == want, f"launches in the fid_eval phase: warp_fwd {launches['warp_fwd']} (expect 24), "
+                            f"no other {dict((k, v) for k, v in launches.items() if k != 'warp_fwd')}")
+    check(not checkpoint_mismatches(read_checkpoint(os.path.join(run, "model", "state.pt")), read_checkpoint(best_pt)),
+          "state_best.pt holds the evaluated state (equal to state.pt)")
+
+    stamp = os.stat(best_pt).st_mtime_ns
+    run_cli(argv)
+    with open(os.path.join(run, "fid.txt")) as f:
+        second = float(f.read()[4:].strip())
+    rewritten = os.stat(best_pt).st_mtime_ns != stamp
+    check(rewritten == (second < first), f"second fid_eval: FID {second} (first {first}); state_best.pt "
+                                         f"{'rewritten' if rewritten else 'untouched'}, as the rule wants")
+
+    latest = os.path.join(run, "model", "state.pt")
+    os.replace(latest, latest + ".aside")
+    try:
+        reset_launches()
+        run_cli(["--phase", "fake_image_generation", "--model_name", run, "--num_fakes", "1", "--best"])
+        path = os.path.join(run, "fakes", "0000_images.jpg")
+        shape = np.asarray(Image.open(path)).shape if os.path.exists(path) else None
+        check(shape == (256 * 8, 256, 3) and read_launches()["warp_fwd"] == 6,
+              f"--best generation from state_best.pt alone (state.pt moved aside): {shape}")
+    finally:
+        os.replace(latest + ".aside", latest)
+
+    # Inception on the card against the CPU, 2 of the run's images, TF32 off
+    cfg = Config.load(os.path.join(run, "args.txt"))
+    dataset = ImageFolderDataset(cfg.dataset_path, cfg.img_resolution, is_train=False)
+    x = torch.from_numpy(np.stack([dataset.get_eval(i)[0] for i in range(2)])).permute(0, 3, 1, 2)
+    net = InceptionV3FID(generator=torch.Generator().manual_seed(0)).eval()
+    with torch.inference_mode():
+        ref = net(x)
+        net = net.cuda()
+        with fp32_convs():
+            out = net(x.cuda()).cpu()
+            imgs = torch.rand((32, 3, 299, 299), generator=torch.Generator().manual_seed(0)).cuda() * 2 - 1
+            ms = cuda_ms(lambda: net(imgs), iters=5, hold=False)
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True  # what fid_evaluate turns off, read once for the record
+        try:
+            out_tf32 = net(x.cuda()).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    # fp32 through ~100 convs summed in other orders: 1e-4 of the features' scale
+    check(err <= 1e-4 * scale, f"Inception features card vs CPU, 2 images 256² → 299², fp32, TF32 off: "
+                               f"max_abs_err {err:.3g} (scale {scale:.3g}, tol 1e-4 of it)")
+    print(f"Inception features card vs CPU with cuDNN's TF32 on instead (not a check): max_abs_err "
+          f"{(out_tf32 - ref).abs().max().item():.3g} (scale {scale:.3g})", flush=True)
+    print(f"Inception at 299², fp32, TF32 off, batch 32: {ms:.3f} ms = {32e3 / ms:.1f} images/s", flush=True)
+    del net, imgs
+    torch.cuda.empty_cache()
+
+
+def run_video_generation(run: str) -> None:
+    """video_generation --ctrl_dim 0 --num_videos 1 at 256²: one mp4 of 60
+    frames (num_explore 30, up and down); frames/s of the whole phase."""
+    import cv2
+    import torch
+
+    reset_launches()
+    t0 = time.perf_counter()
+    run_cli(["--phase", "video_generation", "--model_name", run, "--ctrl_dim", "0", "--num_videos", "1"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    path = os.path.join(run, "demo", "controlled_dim=0_0.mp4")
+    size = os.path.getsize(path) if os.path.exists(path) else 0
+    cap = cv2.VideoCapture(path)
+    frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    print(f"video_generation: 60 frames of batch 8 at 256² in {seconds:.3f} s = {60 / seconds:.2f} frames/s "
+          f"({480 / seconds:.1f} images/s; checkpoint load and mp4 encoding included)", flush=True)
+    check(size > 0 and frames == 60, f"demo/controlled_dim=0_0.mp4: {size} bytes, {frames} frames (expect 60)")
+    want = dict(dict.fromkeys(KERNELS, 0), warp_fwd=60 * 6)
+    check(launches == want, f"launches in the video_generation phase: warp_fwd {launches['warp_fwd']} (expect 360), "
+                            f"no other {dict((k, v) for k, v in launches.items() if k != 'warp_fwd')}")
 
 
 def probe_inputs():
@@ -1776,26 +2125,43 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}, {torch.cuda.device_count()} device(s)")
     bw, flops = card_rates(name)
 
+    def stamp(step: str) -> None:
+        print(f"chip_smoke: {step} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     build_kernels()
     worst = dict(warp_fwd=check_warp_kernel(), **check_backward_kernels(), warp_dx_scatter=check_dx_scatter(),
                  **check_small_kernels())
+    stamp("steps 1-2 (build, kernels against their plain versions)")
     times = line_totals(time_kernel_rows(TIMED_KERNELS, bw, flops, flows=FLOWS[:1], yardsticks=True))
+    stamp("step 3 (kernel times)")
     run_generation_path()
+    stamp("step 4 (generation)")
     run_training_path()
     check_none_route()
     check_training_card_vs_cpu()
+    stamp("step 5 (training iteration)")
     with tempfile.TemporaryDirectory(prefix="lcgan_smoke_512_") as tmp:
         data = os.path.join(tmp, "data")
         synthetic_jpeg_folder(data, 32, 512)
         launches = run_train_phase(data, os.path.join(tmp, "run"))  # the 512² path: the general kernels' counts
         run_train_512(data, os.path.join(tmp, "mix"))
         check_resume_512(os.path.join(tmp, "resume"))
+    stamp("step 6 (512² train phase)")
     with tempfile.TemporaryDirectory(prefix="lcgan_smoke_256_") as tmp:
         data = os.path.join(tmp, "data")
         synthetic_jpeg_folder(data, 32, 256)
-        small = run_train_phase_small(data, os.path.join(tmp, "run"))  # this slice's path: the small-map counts
+        small = run_train_phase_small(data, os.path.join(tmp, "run"))  # the small-map counts
         launches.update({k: small[k] for k in SMALL_KERNELS})
         compare_routes_256()
+        stamp("step 7 (small-map route)")
+        dp = run_dp_train(data, tmp)  # this slice's paths: data parallelism, fid_eval, video_generation
+        compare_dp_mix_256()
+        stamp("step 8, data parallelism")
+        if dp:
+            run_fid_eval(dp)
+            stamp("step 8, fid_eval")
+            run_video_generation(dp)
+            stamp("step 8, video_generation")
     worst.update(check_probe_kernels())  # the probes: their own entry points
     times.update(time_gather_probe(bw))
     launches.update(run_probe_entry_points())
@@ -1838,6 +2204,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-worker"]:  # run_dp_train's fresh processes: --cli-worker OUT -- ARGV
+        sys.exit(cli_worker(sys.argv[2], sys.argv[4:]))
     if sys.argv[1:2] == ["--resume-worker"]:  # check_resume_512's fresh process
         sys.exit(resume_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
     if sys.argv[1:2] == ["--time-kernels"] and len(sys.argv) > 2:

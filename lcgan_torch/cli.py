@@ -2,6 +2,7 @@
 main.py:12-61, plus the JAX package's extensions) and ``--device``.
 
     python -m lcgan_torch.cli --phase fake_image_generation --model_name <run dir>
+    torchrun --nproc_per_node=N -m lcgan_torch.cli --phase train ...   # data parallel, one GPU a rank
 
 Non-train phases reload the run's ``args.txt``; explicitly typed flags win.
 Runs on CUDA unless ``--device cpu`` is given, and raises if no GPU is present.
@@ -119,7 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adam_eps", type=float, default=1e-8, help="Adam epsilon")
     p.add_argument("--num_data_workers", type=int, default=4, help="host data worker threads")
     p.add_argument("--distributed", type=str, default="auto", choices=["auto", "on", "off"],
-                   help="JAX package only: jax.distributed initialization policy")
+                   help="join the process group of a torchrun launch (one process per GPU, NCCL; "
+                        "gloo with --device cpu): 'auto' when torchrun's environment is present, "
+                        "'on' to require it, 'off' never")
     p.add_argument("--warp_impl", type=str, default="auto",
                    choices=["auto", "pallas", "banded", "none"],
                    help="bicubic-warp route: auto/pallas as the JAX package routes its Pallas "

@@ -8,9 +8,10 @@ block's warp route on the card as they pick the JAX package's (the
 small-map kernels where its Pallas entry would take them, else the general
 kernels; ``ops.warp.small_route``); on the CPU the warp is the plain
 version either way. ``warp_impl`` "none" is the JAX package's diagnostic
-ablation: the synthesis blocks skip the warp. The other JAX backend knobs (``warp_adaptive_band``,
-``distributed``, ``profile_dir``, the remat switches) are kept only so that
-``args.txt`` round-trips.
+ablation: the synthesis blocks skip the warp. ``distributed`` joins the
+process group of a ``torchrun`` launch (``lcgan_torch.parallel``). The other
+JAX backend knobs (``warp_adaptive_band``, ``profile_dir``, the remat
+switches) are kept only so that ``args.txt`` round-trips.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import os
 from typing import Optional
 
 import torch
+
+from lcgan_torch.parallel import local_rank
 
 
 @dataclasses.dataclass
@@ -179,8 +182,11 @@ class Config:
 
 
 def resolve_device(name: str) -> torch.device:
-    """The run's device. ``cuda`` without a GPU raises: nothing falls back
-    to the CPU unless the caller asked for it."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
+    """The run's device: ``cuda:LOCAL_RANK`` (the process's GPU under
+    ``torchrun``; GPU 0 otherwise) or the CPU. ``cuda`` without a GPU
+    raises: nothing falls back to the CPU unless the caller asked for it."""
+    if name == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
+        return torch.device("cuda", local_rank())
     return torch.device(name)

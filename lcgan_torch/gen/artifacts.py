@@ -1,22 +1,26 @@
-"""Fake-image generation (worker.py:427-441) and the training monitor
-(worker.py:255-363), PyTorch port of ``lcgan_tpu.gen.artifacts``. Demo
-videos come with a later slice of the port.
+"""Fake-image generation (worker.py:427-441), control-dimension demo videos
+(worker.py:447-485) and the training monitor (worker.py:255-363), PyTorch
+port of ``lcgan_tpu.gen.artifacts``.
 
-Both run the EMA generator in eval mode, so its w-avg buffers stay as they
-are (the JAX package discards that mutation). Codes are drawn on the CPU
-from a ``torch.Generator`` seeded by the config, so a seed gives the same
-codes on every device.
+All run the EMA generator in eval mode, so its w-avg buffers stay as they
+are (the JAX package discards that mutation), on rank 0 alone. Codes are
+drawn on the CPU from a ``torch.Generator`` seeded by the config, so a seed
+gives the same codes on every device. The local batch is the global
+``--batch_size`` over the world size, as the JAX package divides it by its
+mesh's device count.
 """
 
 from __future__ import annotations
 
 import os
+from typing import List
 
 import numpy as np
 import torch
 
+from lcgan_torch import parallel
 from lcgan_torch.config import Config
-from lcgan_torch.utils.media import make_grid, resize_frame, save_image_grid, save_video
+from lcgan_torch.utils.media import make_grid, resize_frame, save_image_grid, save_video, to_uint8
 
 
 def to_unit(img: torch.Tensor) -> np.ndarray:
@@ -24,8 +28,9 @@ def to_unit(img: torch.Tensor) -> np.ndarray:
     return ((img.float() + 1.0) * 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1).cpu().numpy()
 
 
-def device_count(device: torch.device) -> int:
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+def local_batch(cfg: Config) -> int:
+    """The global batch's share of one rank (at least 1)."""
+    return max(cfg.batch_size // parallel.world_size(), 1)
 
 
 @torch.inference_mode()
@@ -40,12 +45,65 @@ def fake_image_generation(cfg: Config, generator: torch.nn.Module, device: torch
     rng = torch.Generator().manual_seed(cfg.seed)
     folder = cfg.run_dirs()["fakes"]
     os.makedirs(folder, exist_ok=True)
-    local_b = max(cfg.batch_size // device_count(device), 1)
+    local_b = local_batch(cfg)
     for count in range(cfg.num_fakes):
         z1 = torch.randn((local_b, cfg.geo_noise_dim), generator=rng).to(device)
         z2 = torch.randn((local_b, cfg.app_noise_dim), generator=rng).to(device)
         imgs = to_unit(generator(z1, z2, w_psi=cfg.w_psi))
         save_image_grid(imgs, os.path.join(folder, f"{count:04d}_images.jpg"), nrow=1, padding=0)
+
+
+@torch.inference_mode()
+def demo_frames(
+    cfg: Config,
+    generator: torch.nn.Module,
+    device: torch.device,
+    latent: np.ndarray,
+    controlled_dim: int,
+    num_explore: int = 30,
+) -> List[np.ndarray]:
+    """The frames of one demo video of ``latent`` ((local_b, geo + app
+    noise dims)): its ``controlled_dim`` swept up by ``num_explore`` steps
+    of 2·psi/num_explore, then down as many. The endpoint arithmetic is the
+    reference's (worker.py:456-472): the code starts at −psi − interval and
+    steps before each frame, so the up-pass tops out at +psi − interval and
+    the down-pass ends at −psi − interval. Each frame is a grid of
+    ⌊√local_b⌋ images a row, uint8."""
+    latent = np.array(latent, np.float32)  # a copy: the sweep writes into it
+    interval = cfg.psi * 2.0 / num_explore
+    latent[:, controlled_dim] = -cfg.psi - interval
+    nrow = max(int(latent.shape[0] ** 0.5), 1)
+    frames = []
+    for direction in (+1.0, -1.0):
+        for _ in range(num_explore):
+            latent[:, controlled_dim] += direction * interval
+            z = torch.from_numpy(latent).to(device)
+            img = to_unit(generator(z[:, : cfg.geo_noise_dim], z[:, cfg.geo_noise_dim :], w_psi=cfg.w_psi))
+            frames.append(to_uint8(make_grid(img, nrow=nrow, padding=0)))
+    return frames
+
+
+def demo_generation(
+    cfg: Config,
+    generator: torch.nn.Module,
+    device: torch.device,
+    controlled_dim: int = 0,
+    num_video: int = 1,
+    num_explore: int = 30,
+):
+    """``num_video`` sweeps of ``controlled_dim`` → ``<model_name>/demo/
+    controlled_dim=<d>_<n>.mp4`` at ``num_explore`` frames/s
+    (worker.py:447-485). Each video's latent ((local_b, geo + app noise
+    dims), standard normal) is drawn on the CPU from a ``torch.Generator``
+    seeded by ``cfg.seed``."""
+    rng = torch.Generator().manual_seed(cfg.seed)
+    folder = cfg.run_dirs()["demo"]
+    os.makedirs(folder, exist_ok=True)
+    total_dim = cfg.geo_noise_dim + cfg.app_noise_dim
+    for n in range(num_video):
+        latent = torch.randn((local_batch(cfg), total_dim), generator=rng).numpy()
+        frames = demo_frames(cfg, generator, device, latent, controlled_dim, num_explore)
+        save_video(frames, os.path.join(folder, f"controlled_dim={controlled_dim}_{n}.mp4"), fps=num_explore)
 
 
 @torch.no_grad()

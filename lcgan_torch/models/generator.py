@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from lcgan_torch import parallel
 from lcgan_torch.config import Config
 from lcgan_torch.ops.equalized import EqualizedConv2d
 from lcgan_torch.ops.filters import box_filter_3x3, leaky_relu, nearest_upsample_2x
@@ -186,8 +187,11 @@ class Generator(nn.Module):
             if self.training:
                 # new_avg = mean(w).lerp(avg, beta) = m + beta * (avg - m)
                 with torch.no_grad():
-                    for avg, code in ((self.avg_latent1, geometry_code), (self.avg_latent2, appearance_code)):
-                        m = code.mean(dim=0)
+                    means = [geometry_code.mean(dim=0), appearance_code.mean(dim=0)]
+                    # under data parallelism, the means over the global batch
+                    # (the JAX generator's mean_axis pmean, generator.py:248-250)
+                    parallel.mean_all_reduce(means)
+                    for avg, m in zip((self.avg_latent1, self.avg_latent2), means):
                         avg.copy_(m + self.w_avg_beta * (avg - m))
         else:
             # avg.lerp(code, psi) = avg + psi * (code - avg)

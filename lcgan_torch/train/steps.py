@@ -16,7 +16,17 @@ On the card every warp of G runs the CUDA kernels: the forward in all four
 G passes of an even iteration, and the two gradient kernels in the G step's
 backward. The D step's fake is generated under ``no_grad``.
 
-Not ported yet: ``view_batched_steps`` (raises) and data parallelism.
+Data parallelism (``lcgan_torch.parallel``, one process per GPU): each rank
+runs the iteration on its shard of the global batch; G's gradients with
+``g_loss``, then D's live gradients with ``d_loss``, are averaged over the
+ranks by one ``mean_all_reduce`` each before Adam, as the JAX step
+``pmean``s them (lcgan_tpu/train/steps.py:184-186, 274-276), and the
+generator averages its w-avg batch means. Every rank keeps the same state.
+Rank r's noise is rows r·b..(r+1)·b of a draw of the global batch from the
+shared stream, so the ranks draw distinct noise, the stream stays one state
+on every rank, and at world size 1 the draws are the one-process ones.
+
+Not ported yet: ``view_batched_steps`` (raises).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from lcgan_torch import parallel
 from lcgan_torch.config import Config, resolve_device
 from lcgan_torch.losses import bce_logits, contrastive_loss, r1_penalty_with_logits, sparsity_loss
 from lcgan_torch.train.ema import ema_update
@@ -55,10 +66,15 @@ class Trainer:
         return create_train_state(self.cfg, self.device)
 
     def draw_noise(self, state: TrainState, batch_size: int) -> Noise:
-        """The iteration's six draws from the state's noise stream."""
+        """The iteration's six draws from the state's noise stream, for a
+        local batch of ``batch_size``: this rank's rows of each draw of the
+        global batch (the whole draw at world size 1)."""
         cfg = self.cfg
         dims = (cfg.geo_noise_dim, cfg.app_noise_dim) * 3
-        return tuple(torch.randn((batch_size, d), generator=state.rng, device=self.device) for d in dims)
+        rank, world = parallel.rank(), parallel.world_size()
+        rows = slice(rank * batch_size, (rank + 1) * batch_size)
+        return tuple(torch.randn((world * batch_size, d), generator=state.rng, device=self.device)[rows]
+                     for d in dims)
 
     # ------------------------------------------------------------------
     def _iteration(
@@ -95,7 +111,10 @@ class Trainer:
             g_loss = bce_logits(d_net(anchor, False)[0], 1.0)
         g_params = list(g_net.parameters())
         # grads of G's leaves only: the loss ran D with grads, D gets none
-        state.g_opt.step(g_params, _grads(g_loss, g_params))
+        g_grads = _grads(g_loss, g_params)
+        g_loss = g_loss.detach()
+        parallel.mean_all_reduce(g_grads + [g_loss])  # pmean (steps.py:184-186)
+        state.g_opt.step(g_params, g_grads)
 
         # ---------------- EMA (loader.py:48), before the D step's G forward ----------------
         ema_update(g_net, state.ema, state.step, cfg.g_ema_decay, cfg.g_ema_start)
@@ -124,13 +143,16 @@ class Trainer:
         d_params = list(d_net.parameters())
         mask = freeze_mask(d_net, cfg.freezeD_layer) if frozen else [False] * len(d_params)
         live = [p for p, f in zip(d_params, mask) if not f]
-        live_grads = iter(_grads(d_loss, live))
+        live_grads = _grads(d_loss, live)
+        d_loss = d_loss.detach()
+        parallel.mean_all_reduce(live_grads + [d_loss])  # pmean (steps.py:274-276)
+        live_grads = iter(live_grads)
         # frozen leaves: zero gradients (v decays) and no update
         d_grads = [torch.zeros_like(p) if f else next(live_grads) for p, f in zip(d_params, mask)]
         state.d_opt.step(d_params, d_grads, mask)
 
         state.step += 1
-        return state, g_loss.detach(), d_loss.detach()
+        return state, g_loss, d_loss
 
     # ------------------------------------------------------------------
     def step_variant(self, epoch: int):

@@ -6,13 +6,16 @@ One ``torch.save`` file under ``<model_name>/<save_dir>/``: ``state.pt``
 ``TrainState`` as ``TrainState.state_dict`` gives it: G, D and EMA
 parameters and buffers, both Adam ``v`` trees and counts, ``step`` and the
 noise generator's state. Restoring it into a freshly built state resumes
-bit for bit. ``<model_name>/epoch.txt`` holds the last saved epoch.
+bit for bit. ``<model_name>/epoch.txt`` holds the last saved epoch. Under
+data parallelism every rank holds the same state (its noise stream
+included: the ranks share one stream, ``train.steps``), and rank 0 alone
+writes it, so the layout is the same at every world size.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -23,24 +26,23 @@ def state_path(cfg: Config, best: bool = False) -> str:
     return os.path.join(cfg.run_dirs()["model"], "state_best.pt" if best else "state.pt")
 
 
-def save_state(path: str, state) -> None:
-    """Write ``state`` (a ``TrainState``) to ``path`` atomically."""
+def save_checkpoint(path: str, checkpoint: dict) -> None:
+    """Write ``checkpoint`` (a ``TrainState.state_dict()``) to ``path`` atomically."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
-    torch.save(state.state_dict(), tmp)
+    torch.save(checkpoint, tmp)
     os.replace(tmp, path)
+
+
+def save_state(path: str, state) -> None:
+    """Write ``state`` (a ``TrainState``) to ``path`` atomically."""
+    save_checkpoint(path, state.state_dict())
 
 
 def load_state(path: str, state) -> None:
     """Restore the checkpoint at ``path`` into ``state`` (built from the
     same config), in place."""
     state.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
-
-
-def load_generator_state(path: str, use_ema: bool = True) -> Dict[str, torch.Tensor]:
-    """The state_dict of the EMA (or raw) generator stored at ``path``."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return ckpt["ema" if use_ema else "generator"]
 
 
 def read_epoch_file(model_name: str) -> Optional[int]:

@@ -12,6 +12,7 @@ from PIL import Image
 
 from lcgan_torch import cli
 from lcgan_torch.config import Config
+from lcgan_torch.train.loop import run_phase
 from lcgan_torch.train.steps import Trainer
 from lcgan_torch.utils.checkpoint import save_state, state_path
 
@@ -69,8 +70,14 @@ def test_missing_checkpoint_raises(tmp_path):
 
 @pytest.mark.parametrize("phase", ["fid_eval", "video_generation"])
 def test_other_phases_wait_for_their_slice(phase, tmp_path):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """Both phases are ported: without a checkpoint they raise as the JAX
+    package's run_phase does; only an unknown phase is refused as such."""
+    with pytest.raises(FileNotFoundError, match="run the train phase first"):
         cli.main(["--phase", phase, "--model_name", str(tmp_path / "run"), "--device", "cpu"])
+    cfg = Config(model_name=str(tmp_path / "run"), device="cpu")
+    cfg.phase = "sample"
+    with pytest.raises(ValueError, match="unknown phase"):
+        run_phase(cfg)
 
 
 def test_generation_reloads_args_txt_and_typed_flags_win(tmp_path):

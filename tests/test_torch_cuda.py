@@ -1,7 +1,9 @@
 """The CUDA warp kernels on the card (forward, grid gradient, the two
 feature-gradient kernels, and the three small-map kernels), against their
-plain versions, the deterministic-mode train iteration, and the probes'
-kernels (the gather and the static and loaded trip-count sums).
+plain versions, the deterministic-mode train iteration, the probes'
+kernels (the gather and the static and loaded trip-count sums), the
+collectives under a one-rank NCCL group, and the FID network on the card
+against the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so on a GPU host without JAX it runs with
@@ -802,3 +804,85 @@ def test_dyn_trip_clamps_and_refuses(dev):
         dyn_trip_probe.dyn_trip_dyn(torch.tensor([4], device=dev), x, w)
     with pytest.raises(ValueError, match="contiguous"):
         dyn_trip_probe.dyn_trip_static(x[:, :, :128], w, 4)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism and FID on the card
+
+
+def test_mean_all_reduce_under_a_one_rank_nccl_group(dev, monkeypatch):
+    """torchrun's environment at world size 1: NCCL, cuda:LOCAL_RANK, the
+    values back bit for bit, rows gathered, the group gone on exit."""
+    import socket
+
+    import numpy as np
+
+    from lcgan_torch import parallel
+    from lcgan_torch.config import resolve_device
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    with parallel.process_group("auto", "cuda"):
+        assert parallel.initialized() and torch.distributed.get_backend() == "nccl"
+        g = torch.Generator().manual_seed(0)
+        tensors = [torch.randn(5, generator=g).to(dev), torch.randn(2, 3, 4, 4, generator=g).to(dev).contiguous(
+            memory_format=torch.channels_last)]
+        before = [t.clone() for t in tensors]
+        parallel.mean_all_reduce(tensors)
+        assert all(torch.equal(a, b) for a, b in zip(tensors, before))
+        rows = np.arange(6.0).reshape(2, 3)
+        np.testing.assert_array_equal(parallel.all_gather_rows(rows), rows)
+        parallel.barrier()
+    assert not parallel.initialized()
+
+
+def test_inception_on_card_matches_cpu_with_tf32_off(dev, tmp_path, monkeypatch):
+    """The FID network's features on the card against the CPU on 2 images
+    (fp32 through ~100 convs in other orders: within 1e-4 of the features'
+    largest value; TF32 would be ~1e-3 off). fid_evaluate turns TF32 off
+    around the network and restores the flags after it."""
+    import numpy as np
+    from PIL import Image
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.eval import fid
+    from lcgan_torch.eval.inception import InceptionV3FID
+    from lcgan_torch.models.generator import build_generator
+
+    net = InceptionV3FID(generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.rand((2, 3, 256, 256), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    with torch.no_grad():
+        ref = net(x)
+        with fid.fp32_convs():
+            got = net.to(dev)(x.to(dev)).cpu()
+    assert got.shape == (2, 2048) and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+    d = tmp_path / "data" / "train" / "x"
+    d.mkdir(parents=True)
+    for i in range(2):
+        Image.fromarray(np.random.default_rng(i).integers(0, 255, (32, 32, 3), dtype=np.uint8)).save(d / f"{i}.png")
+    cfg = Config(model_name=str(tmp_path / "run"), dataset_path=str(tmp_path / "data"), img_resolution=32,
+                 batch_size=2, geo_noise_dim=8, app_noise_dim=8, geo_latent_dim=8, app_latent_dim=16, base_nf=8,
+                 max_nf=16, compute_dtype="float32", num_data_workers=1)
+    seen = []
+    load = fid.load_inception
+
+    def recording(cfg, device):
+        model = load(cfg, device)
+        model.register_forward_pre_hook(
+            lambda m, a: seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+        return model
+
+    monkeypatch.setattr(fid, "load_inception", recording)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        value = fid.fid_evaluate(cfg, build_generator(cfg).to(dev).eval(), dev)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    assert np.isfinite(value) and seen and all(flags == (False, False) for flags in seen)
