@@ -94,7 +94,7 @@
    an even-step profile (warp_fwd's, warp_dgrid's, warp_dx's and
    warp_dx_scatter's device ms by name),
    bit-exact resume at 512² in a fresh process, and
-   the training monitor once at full width (num_explore 2).
+   the training monitor once at full width (num_explore 1).
 7. Drives the small-map route, the main path of this slice: `python -m
    lcgan_torch.cli --phase train` at the flagship 256² recipe with
    `--warp_pallas_min_res 8` (the flags of step 5, batch 8, freezeD_layer 5)
@@ -130,7 +130,36 @@
    2 images (TF32 off; 1e-4 of their scale) and its images/s at 299² fp32.
    Then `--phase video_generation --ctrl_dim 0 --num_videos 1`: one mp4 of
    60 frames (warp_fwd 360), frames/s.
-9. The probes (lcgan_torch.tools), whose path is their own entry points:
+9. Drives this slice's paths: view batching, Adam with beta1 != 0,
+   --profile_dir, the 1024² recipe and the Inception converter's CLI.
+   First warp_fwd, warp_dgrid and warp_dx / warp_dx_scatter against their
+   plain versions at the shapes these paths give them first (every block of
+   the view-batched 256² G step at B = 24; of the 1024² recipe at B = 4).
+   (a) The flagship 256² recipe in fp32 (deterministic, cuDNN off,
+   adam_eps 1): one iteration of epochs 0, 1, 3 and 5 (frozen from 4) from
+   one state with the same batch and noise, unbatched and with
+   --view_batched_steps: losses within 1e-5, each gradient within 1e-2 in
+   l2, every leaf within 1e-3 of its scale, epoch 1 (nothing batched)
+   bitwise.
+   (b) `python -m lcgan_torch.cli --phase train` at the flagship 256² recipe
+   (bf16, batch 8) on step 7's folder with --view_batched_steps --beta1 0.5
+   --profile_dir, epochs 0-20: counts set to 0 just before and read just
+   after, and each iteration's launches recorded (warp_fwd 12, warp_dgrid
+   and warp_dx 6 in every iteration: 2, 1, 1 a block); finite losses, Adam's
+   mu in state.pt, a Chrome trace of epochs 12-20 holding the warp kernels,
+   the profiler stopped before the phase returned. Then, per layer, the even
+   step unbatched and batched in turns (U, B, B, U): host ms, device ms and
+   idle share (profiler on, once a form), peak memory.
+   (c) The reference's 1024² recipe (batch 4, lr 1e-3, freezeD_layer 5,
+   base_nf 32) through the CLI in bf16, epochs 0-3 on 16 synthetic 1024²
+   JPEGs: counts set to 0 just before and read just after (warp_fwd 96,
+   warp_dgrid 64, warp_dx 48, warp_dx_scatter 16), finite losses, peak
+   memory; then on the port's pipeline one window of the 8-iteration mix
+   (images/s, peak memory), the even step (min of 3) and its profile.
+   (d) `python -m lcgan_torch.eval.convert` on a synthetic pytorch-fid .pth;
+   the .npz it writes loaded into InceptionV3FID on the card, its leaves and
+   features equal to the .pth's.
+10. The probes (lcgan_torch.tools), whose path is their own entry points:
    gather_probe against take_along_dim on the (256, 128) fp32 tile,
    exactly, for random, all-0 and all-255 indices; dyn_trip_static and
    dyn_trip_dyn against an fp64 sum at 16 packs (n = 16, 8 and, for the
@@ -142,10 +171,10 @@
    just before and read just after (gather_probe 41 launches, dyn_trip_static
    4130, dyn_trip_dyn 8258), and once more as `python -m` in a fresh
    process, and checks the rows A, B, C and the GO / NO-GO line.
-10. Prints the whole run's wall time, each kernel's time and bound per
+11. Prints the whole run's wall time, each kernel's time and bound per
    launch (a row's sums over the calls it times) with launches x (time -
    bound), the kernels as one JSON line (launches from step 6, from step 7
-   for the small-map kernels and from step 9 for the probes'), the card's
+   for the small-map kernels and from step 10 for the probes'), the card's
    name and power limit, and last the ok line.
    Exits nonzero, printing no result, on any failure and when no GPU is
    present.
@@ -160,6 +189,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -178,7 +208,7 @@ CARD_RATES = [
 MAIN_PATH_WARPS = [(8, 512, 8), (8, 512, 16), (8, 512, 32), (8, 512, 64), (8, 256, 128), (8, 128, 256)]
 FLOWS = [0.1, 0.03]
 FP32_TOL = 1e-5
-MIX_WINDOWS = 3  # timed passes over the training schedule's 8-iteration mix
+MIX_WINDOWS = 2  # timed passes over the training schedule's 8-iteration mix
 # (B, C, H) of the narrow-map warps (C < 128): the top block of the 512²
 # recipe, and of the 1024² one at its per-GPU batch of 4
 SCATTER_SHAPES = [(8, 64, 512), (4, 32, 1024)]
@@ -1395,7 +1425,7 @@ def run_train_512(data: str, run: str) -> None:
         ctx = deterministic_algorithms() if deterministic else contextlib.nullcontext()
         times = []
         with ctx:
-            for _ in range(3):
+            for _ in range(2):
                 noise = trainer.draw_noise(state, cfg.batch_size)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1404,7 +1434,7 @@ def run_train_512(data: str, run: str) -> None:
                 times.append((time.perf_counter() - t0) * 1e3)
         return times
 
-    # turns D, N, N, D; each the min of 3 (the first call of the free mode picks its own algorithms)
+    # turns D, N, N, D of two steps; each mode the min of its four (the first call of the free mode picks its own algorithms)
     runs = {True: [], False: []}
     for det in (True, False, False, True):
         runs[det] += even_step_ms(det)
@@ -1419,11 +1449,11 @@ def run_train_512(data: str, run: str) -> None:
 
     epoch = 8 * (MIX_WINDOWS_512 + 1)
     t0 = time.perf_counter()
-    monitor_current_result(cfg, state.ema, trainer.device, epoch=epoch, num_explore=2, w_psi=cfg.w_psi,
+    monitor_current_result(cfg, state.ema, trainer.device, epoch=epoch, num_explore=1, w_psi=cfg.w_psi,
                            images_per_output=cfg.geo_noise_dim)
     torch.cuda.synchronize()
     videos = sorted(f for f in os.listdir(cfg.run_dirs()["samples"]) if f.endswith((".mp4", ".gif")))
-    print(f"monitor at full width (num_explore 2, 64 images a frame): {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"monitor at full width (num_explore 1, 64 images a frame): {time.perf_counter() - t0:.3f} s", flush=True)
     check([os.path.splitext(v)[0] for v in videos] == [f"appearance_{epoch}_0", f"geometry_{epoch}_0"]
           and all(os.path.getsize(os.path.join(cfg.run_dirs()["samples"], v)) > 0 for v in videos),
           f"monitor_current_result wrote {videos}")
@@ -2106,6 +2136,454 @@ def run_probe_entry_points() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# step 9: view batching, Adam with beta1 != 0, --profile_dir, the 1024²
+# recipe and the Inception converter's CLI
+
+# (B, C, H) of the warps of the view-batched 256² G step (three views of 8:
+# every block at 3B) and of the 1024² recipe at its per-GPU batch of 4
+# (base_nf 32: C = 512 at 8²-64², then 256, 128, 64, 32)
+BATCHED_WARPS = [(3 * b, c, h) for b, c, h in MAIN_PATH_WARPS]
+RECIPE_1024_WARPS = [(4, c, h) for _, c, h in MAIN_PATH_WARPS] + [(4, 64, 512), (4, 32, 1024)]
+TRAIN_1024 = ["--img_resolution", "1024", "--batch_size", "4", "--g_lr", "1e-3", "--d_lr", "1e-3",
+              "--freezeD_layer", "5", "--num_data_workers", "4"]
+BATCHED_TURNS = ("unbatched", "batched", "batched", "unbatched")  # the 256² even step, in turns
+EVEN_STEPS_A_TURN = 2
+
+
+def check_new_shapes() -> dict:
+    """warp_fwd, warp_dgrid and warp_dx (C >= 128) or warp_dx_scatter
+    (C < 128) against their plain versions at the shapes this step's paths
+    give them first: every block of the view-batched 256² G step at B = 24,
+    and of the 1024² recipe at B = 4 (fp32 1e-5 x max(1, scale), bf16 one
+    ulp of the scale; iid flow, s = 0.1). The shapes the earlier steps hold
+    (1024²·C32 at B = 4 for warp_fwd and warp_dx_scatter) are not repeated.
+    Returns each kernel's largest fp32 error."""
+    import torch
+
+    from lcgan_torch.ops.grid_sample import grid_sample_bicubic_plain_backward
+    from lcgan_torch.ops.warp import warp_dgrid, warp_dx
+
+    worst = dict.fromkeys(GENERAL_KERNELS, 0.0)
+    for b, c, h in BATCHED_WARPS + RECIPE_1024_WARPS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, grid = warp_inputs(b, c, h, 0.1, dtype, seed=4)
+            g = cotangent_like(x, seed=5)
+            tag = f"{b}x{c}x{h}x{h} {str(dtype)[6:]} s=0.1"
+            errs = {}
+            if (b, c, h) not in SCATTER_SHAPES:
+                errs["warp_fwd"] = check_fwd(f"warp_fwd {tag}", x, grid, lib=False)
+            if c < 128:
+                if (b, c, h) not in SCATTER_SHAPES:
+                    errs["warp_dx_scatter"] = check_dx_one(f"warp_dx_scatter {tag}", x, grid, g)
+                got = dict(warp_dgrid=warp_dgrid(x, grid, g))
+            else:
+                got = dict(warp_dgrid=warp_dgrid(x, grid, g), warp_dx=warp_dx(grid, g))
+            torch.cuda.synchronize()
+            ref_dx, ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
+            for name, out in got.items():
+                want = (ref_dgrid if name == "warp_dgrid" else ref_dx).float()
+                err = (out.float() - want).abs().max().item()
+                if dtype == torch.float32 or name == "warp_dgrid":  # dgrid is fp32 from either
+                    tol = fp32_tol(want)
+                    check(err <= tol, f"{name} {tag}: max_abs_err {err:.3g} (tol {tol:.3g} = 1e-5 x max(1, scale))")
+                else:
+                    ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+                    check(err <= ulp, f"{name} {tag}: max_abs_err {err:.3g} (tol 1 bf16 ulp = {ulp:.3g})")
+                errs[name] = err
+            if dtype == torch.float32:
+                for name, err in errs.items():
+                    worst[name] = max(worst[name], err)
+            del x, grid, g, got, ref_dx, ref_dgrid
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_view_batching() -> None:
+    """(a) The flagship 256² recipe in fp32 (batch 8) in deterministic mode:
+    one iteration of each variant, epochs 0 (even), 1 (odd + R1), 3 (odd)
+    and 5 (odd, frozen from 4), from one state with the same batch and
+    noise, unbatched and view-batched. Two settings make the comparison read
+    the batching and not the card's fp32 rounding, which the step amplifies:
+    cuDNN off (PyTorch's own convolutions compute each sample alone at any
+    batch, so batching changes only the order of the sums over samples;
+    cuDNN picks other algorithms at 3B and 4B than at B), and adam_eps 1
+    (an update lr·g/(sqrt(v̂) + 1) follows its gradient at slope lr instead
+    of lr/eps, so the G update's rounding does not reach the D step's fake
+    multiplied). Losses within 1e-5 (relative); each gradient Adam receives
+    within 1e-2 of its leaf's gradient in l2 norm (near-cancelled sums, such
+    as the flow layers' bias gradients over 24·256² pixels, move by up to
+    ~2e-3); every leaf of G, D, EMA and both Adam v trees within 1e-3 of
+    max(1e-3, its scale). Epoch 1 batches nothing and must agree bitwise."""
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.loop import deterministic_algorithms
+    from lcgan_torch.train.steps import Trainer
+
+    cfg = Config(model_name="chip_smoke_batched", img_resolution=256, batch_size=8, compute_dtype="float32",
+                 adam_eps=1.0, freezeD_start=4, freezeD_layer=5, seed=0, device="cuda")
+    grads = {}
+
+    def recording(opt, key):
+        step = opt.step
+
+        def record(params, g, frozen=None):
+            grads[key] = [t.detach().clone() for t in g]
+            step(params, g, frozen)
+        opt.step = record
+
+    cudnn_off = torch.backends.cudnn.flags(enabled=False, benchmark=False, deterministic=True, allow_tf32=False)
+    with deterministic_algorithms(), cudnn_off:
+        forms = {flag: Trainer(dataclasses.replace(cfg, view_batched_steps=flag)) for flag in (False, True)}
+        states = {flag: trainer.init_state() for flag, trainer in forms.items()}
+        for flag, state in states.items():
+            recording(state.g_opt, (flag, "G"))
+            recording(state.d_opt, (flag, "D"))
+        names = {"G": [n for n, _ in states[False].generator.named_parameters()],
+                 "D": [n for n, _ in states[False].discriminator.named_parameters()]}
+        start = states[False].state_dict()
+        batch = synthetic_batch(cfg, torch.device("cuda"), seed=1)
+        g = torch.Generator(device="cuda").manual_seed(2)
+        t0 = time.perf_counter()
+        for epoch in (0, 1, 3, 5):
+            noise = tuple(torch.randn((8, 64), generator=g, device="cuda") for _ in range(6))
+            out = {}
+            for flag, trainer in forms.items():
+                state = states[flag]
+                state.load_state_dict(start)
+                state, g_loss, d_loss = trainer.step_variant(epoch)(state, batch, noise)
+                leaves = {f"{name}.{k}": v.detach().clone() for name, m in
+                          (("G", state.generator), ("D", state.discriminator), ("EMA", state.ema))
+                          for k, v in m.state_dict().items()}
+                leaves.update({f"{name}.v.{k}": v.clone() for name, opt in
+                               (("g_opt", state.g_opt), ("d_opt", state.d_opt)) for k, v in opt.v.items()})
+                out[flag] = (g_loss.item(), d_loss.item(), leaves)
+            (g0, d0, ref), (g1, d1, got) = out[False], out[True]
+            loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in ((g1, g0), (d1, d0)))
+            leaf_err, where = max(((got[k] - ref[k]).abs().max().item() / max(1e-3, ref[k].abs().max().item()), k)
+                                  for k in ref)
+            grad_err, grad_at = max(((torch.linalg.vector_norm(b - a) / torch.linalg.vector_norm(a).clamp_min(1e-30)).item(),
+                                     f"{net}.{n}") for net in ("G", "D")
+                                    for n, a, b in zip(names[net], grads[(False, net)], grads[(True, net)]))
+            same = all(torch.equal(got[k], ref[k]) for k in ref) and (g0, d0) == (g1, d1)
+            finite = all(math.isfinite(v) for v in (g0, d0, g1, d1))
+            check(finite and loss_err <= 1e-5 and grad_err <= 1e-2 and leaf_err <= 1e-3 and (same or epoch != 1),
+                  f"view-batched against unbatched, flagship 256² fp32, epoch {epoch}: losses (g, d) {g1:.6f}, "
+                  f"{d1:.6f} against {g0:.6f}, {d0:.6f}, rel err {loss_err:.3g} (tol 1e-5); worst gradient l2 rel err "
+                  f"{grad_err:.3g} at {grad_at} (tol 1e-2); worst leaf rel err {leaf_err:.3g} at {where} (tol 1e-3 "
+                  f"of max(1e-3, the leaf's scale)), {len(ref)} leaves; bitwise equal {same}")
+            del out, ref, got
+    print(f"view batching card check: 4 variants x 2 forms in {time.perf_counter() - t0:.1f} s", flush=True)
+    del forms, states, start, batch, grads
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def count_iterations():
+    """A block in which Trainer.train_iteration records each epoch's kernel
+    launches (the wrappers' counts, read on the host before and after the
+    call) into the dict it yields."""
+    from lcgan_torch.train import steps
+
+    per_epoch = {}
+    original = steps.Trainer.train_iteration
+
+    def counted(self, state, batch, epoch):
+        before = read_launches()
+        out = original(self, state, batch, epoch)
+        after = read_launches()
+        per_epoch[epoch] = {k: after[k] - before[k] for k in KERNELS}
+        return out
+
+    steps.Trainer.train_iteration = counted
+    try:
+        yield per_epoch
+    finally:
+        steps.Trainer.train_iteration = original
+
+
+def trace_summary(path: str):
+    """A Chrome trace's ``train_iteration epoch N`` ranges and its device
+    kernels' launches by the warp kernels' names."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    epochs = sorted(int(e["name"].rsplit(" ", 1)[1]) for e in events  # the host's ranges, not their device copies
+                    if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith("train_iteration epoch "))
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    warps = {label: sum(1 for k in kernels if re.search(pattern, k)) for label, pattern in WARP_KERNEL_NAMES}
+    return epochs, len(kernels), warps
+
+
+def run_view_batched_phase(data: str, run: str) -> dict:
+    """(b) The 256² train phase through the CLI in bf16 with
+    --view_batched_steps --beta1 0.5 --profile_dir, epochs 0-20 on step 7's
+    folder. Counts set to 0 just before and read just after, and each
+    iteration's launches recorded: with every block at 3B in the G step and
+    the D step's fake once, an even iteration launches warp_fwd 2, warp_dgrid
+    1 and warp_dx 1 a block (unbatched: 4, 3, 3), as an odd one does. The
+    trace of epochs 12-20 must hold their ranges and the warp kernels, and
+    the profiler must have stopped before the phase returned. Returns the
+    phase's launches."""
+    import torch
+
+    prof = os.path.join(run, "profile")
+    argv = ["--phase", "train", "--dataset_path", data, "--model_name", run, *TRAIN_256, "--view_batched_steps",
+            "--beta1", "0.5", "--profile_dir", prof, "--epoch", "20", "--save_interval", "20", "--print_interval", "1",
+            "--show_interval", "1000"]
+    reset_launches()
+    t0 = time.perf_counter()
+    with count_iterations() as per_epoch:
+        out = run_cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    returned = time.time()
+    launches = read_launches()
+    print(f"view-batched 256² train phase, --beta1 0.5, --profile_dir: epochs 0-20 through the CLI in {seconds:.3f} s "
+          "(first calls, data, the traced window and one save included)", flush=True)
+    blocks = 6
+    per_block = dict(warp_fwd=2, warp_dgrid=1, warp_dx=1)
+    want = dict(dict.fromkeys(KERNELS, 0), **{k: n * blocks for k, n in per_block.items()})
+    bad = {e: n for e, n in per_epoch.items() if n != want}
+    check(sorted(per_epoch) == list(range(21)) and not bad,
+          f"launches per iteration of the view-batched phase, even and odd alike: warp_fwd {want['warp_fwd']}, "
+          f"warp_dgrid {want['warp_dgrid']}, warp_dx {want['warp_dx']} (2, 1, 1 a block over {blocks} blocks; "
+          f"unbatched even: 4, 3, 3 a block), no other; epochs that differ: {bad}")
+    check(launches == {k: 21 * n for k, n in want.items()},
+          f"launches over the phase, epochs 0-20: {launches} (expect 21 x the iteration's)")
+    lines = log_epochs(run)
+    check(lines is not None and [e for e, _, _ in lines] == list(range(21))
+          and all(math.isfinite(v) for _, g, d in lines for v in (g, d)) and "restart training from" not in out,
+          f"view-batched phase log.txt, epochs 0-20, finite losses: {lines and lines[-3:]}")
+    state = torch.load(os.path.join(run, "model", "state.pt"), map_location="cpu", weights_only=True)
+    check(set(state["g_opt"]) == set(state["d_opt"]) == {"mu", "v", "count"} and state["g_opt"]["count"] == 21,
+          f"state.pt carries Adam's first moment: g_opt {sorted(state['g_opt'])}, count {state['g_opt']['count']}")
+    files = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+    name = "trace_epochs_12-20_rank0.json"
+    check(files == [name], f"--profile_dir holds {files} (expect [{name}])")
+    if files == [name]:
+        path = os.path.join(prof, name)
+        epochs, n_kernels, warps = trace_summary(path)
+        traced = {k: sum(per_epoch[e][k] for e in range(12, 21)) for k in per_block}
+        stopped = not torch.autograd._profiler_enabled() and os.stat(path).st_mtime < returned
+        check(epochs == list(range(12, 21)) and warps["warp_fwd"] == traced["warp_fwd"] and warps["warp_dgrid"] > 0
+              and warps["warp_dx"] > 0 and stopped,
+              f"trace of epochs 12-20 ({os.path.getsize(path) / 2**20:.1f} MiB, {n_kernels} device kernels): ranges of "
+              f"epochs {epochs}, warp kernels {dict((k, v) for k, v in warps.items() if v)} (warp_fwd expect "
+              f"{traced['warp_fwd']}, launched in the window); profiler stopped before the phase returned: {stopped}")
+    del state
+    return launches
+
+
+def time_batched_even_step() -> dict:
+    """The flagship 256² even step (bf16, batch 8) unbatched and
+    view-batched, in turns (U, B, B, U): each turn times EVEN_STEPS_A_TURN
+    synchronized steps on the host clock; each form's first turn then
+    profiles two (device ms and the device's idle share, profiler on). Peak
+    memory of each form over its turns. Returns the forms' figures."""
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.steps import Trainer
+
+    cfg = Config(model_name="chip_smoke_batched_time", img_resolution=256, batch_size=8, freezeD_start=10**9,
+                 device="cuda")
+    runs = {}
+    for form in ("unbatched", "batched"):
+        trainer = Trainer(dataclasses.replace(cfg, view_batched_steps=form == "batched"))
+        state = trainer.init_state()
+        batch = synthetic_batch(cfg, trainer.device)
+        for _ in range(2):  # first calls
+            trainer._iteration(state, batch, trainer.draw_noise(state, 8), even=True, with_r1=False, frozen=False)
+        runs[form] = dict(trainer=trainer, state=state, batch=batch, host=[], device=[], idle=[], peak=0.0)
+    for form in BATCHED_TURNS:
+        r = runs[form]
+        trainer, state, batch = r["trainer"], r["state"], r["batch"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(EVEN_STEPS_A_TURN):
+            noise = trainer.draw_noise(state, 8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False)
+            torch.cuda.synchronize()
+            r["host"].append((time.perf_counter() - t0) * 1e3)
+        r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated() / 2**30)
+        if r["device"]:  # one profile a form
+            continue
+        noise = trainer.draw_noise(state, 8)
+        prof = profile_forward(lambda: trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False),
+                               iters=2, top=3, what=f"even train step at 256², {form}")
+        r["device"].append(prof["device_ms"])
+        r["idle"].append(prof["idle"])
+    summary = {}
+    for form, r in runs.items():
+        summary[form] = dict(host_ms=statistics.median(r["host"]), device_ms=min(r["device"]),
+                             idle=sum(r["idle"]) / len(r["idle"]), peak=r["peak"])
+        print(f"train step even at 256², {form}, 2 turns of {EVEN_STEPS_A_TURN} in turns (U, B, B, U): "
+              f"host ms median {summary[form]['host_ms']:.2f} (all {', '.join(f'{t:.1f}' for t in r['host'])}); device "
+              f"ms {', '.join(f'{t:.2f}' for t in r['device'])}; device idle {', '.join(f'{t:.1%}' for t in r['idle'])} "
+              f"(profiler on); peak memory {r['peak']:.2f} GiB", flush=True)
+    u, b = summary["unbatched"], summary["batched"]
+    print(f"view batching at 256², even step: host {b['host_ms'] / u['host_ms'] - 1:+.1%}, device "
+          f"{b['device_ms'] / u['device_ms'] - 1:+.1%}, peak memory {b['peak'] / u['peak'] - 1:+.1%}", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+    return summary
+
+
+def run_train_1024(data: str, run: str) -> dict:
+    """(c) The reference's 1024² recipe (per-GPU batch 4 of the global 32
+    on 8 GPUs, lr 1e-3, freezeD_layer 5; base_nf 32) through the CLI in
+    bf16, epochs 0-3 on a synthetic folder of 1024² JPEGs. Counts set to 0
+    just before and read just after: over the 8 blocks warp_fwd 8·12 = 96,
+    warp_dgrid 8·8 = 64, warp_dx 6·8 = 48 (C >= 128), warp_dx_scatter 2·8 =
+    16 (512²·C64 and 1024²·C32). Then, in this process on the port's
+    pipeline, an iteration to warm up, one window of the 8-iteration mix
+    (images/s, peak memory), the even step (min of 3, host clock) and its
+    profile. Returns the phase's launches."""
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.loop import deterministic_algorithms, make_train_pipeline
+    from lcgan_torch.train.steps import Trainer
+
+    argv = ["--phase", "train", "--dataset_path", data, "--model_name", run, *TRAIN_1024, "--epoch", "3",
+            "--save_interval", "3", "--print_interval", "1", "--show_interval", "1000"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak_phase = torch.cuda.max_memory_allocated() / 2**30
+    print(f"1024² recipe: epochs 0-3 through the CLI in {seconds:.3f} s (first calls, data and one save included); "
+          f"peak memory {peak_phase:.2f} GiB", flush=True)
+    expect = dict(dict.fromkeys(KERNELS, 0), warp_fwd=8 * 12, warp_dgrid=8 * 8, warp_dx=6 * 8, warp_dx_scatter=2 * 8)
+    for name, n in launches.items():
+        check(n == expect[name], f"{name} launches on the 1024² train phase, epochs 0-3: {n} (expect {expect[name]})")
+    lines = log_epochs(run)
+    check(lines is not None and [e for e, _, _ in lines] == [0, 1, 2, 3]
+          and all(math.isfinite(v) for _, g, d in lines for v in (g, d)) and "restart training from" not in out
+          and os.path.exists(os.path.join(run, "model", "state.pt")),
+          f"1024² phase log.txt, epochs 0-3, finite losses, state.pt written: {lines}")
+
+    cfg = Config.load(os.path.join(run, "args.txt"))
+    with deterministic_algorithms():
+        trainer = Trainer(cfg)
+        state = trainer.init_state()
+        n_g = sum(p.numel() for p in state.generator.parameters()) / 1e6
+        n_d = sum(p.numel() for p in state.discriminator.parameters()) / 1e6
+        print(f"1024² recipe: G {n_g:.2f} M + D {n_d:.2f} M params, bf16, batch 4", flush=True)
+        data_it = make_train_pipeline(cfg, trainer.device)
+        state, _, _ = trainer.train_iteration(state, next(data_it), 0)  # a first call (the CLI's warmed cuDNN)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for epoch in range(8):
+            state, g_loss, d_loss = trainer.train_iteration(state, next(data_it), epoch)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"train throughput at 1024², the 8-iteration mix fed by the port's pipeline, deterministic, 1 window: "
+              f"32 images in {window:.3f} s = {32 / window:.2f} images/s; peak memory {peak:.2f} GiB", flush=True)
+        check(math.isfinite(g_loss.item()) and math.isfinite(d_loss.item()), "1024² mix losses finite")
+        batch = next(data_it)
+        times = []
+        for _ in range(3):
+            noise = trainer.draw_noise(state, cfg.batch_size)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"train step even at 1024²: {min(times):.2f} ms (min of 3: {', '.join(f'{t:.2f}' for t in times)})",
+              flush=True)
+        noise = trainer.draw_noise(state, cfg.batch_size)
+        profile_forward(lambda: trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False),
+                        iters=1, top=8, what="even train step at 1024² (deterministic)")
+    del state, trainer, data_it, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def synthetic_inception_pth(path: str) -> None:
+    """pytorch-fid's state-dict layout (``<prefix>.conv.weight`` and
+    ``<prefix>.bn.{weight,bias,running_mean,running_var}`` for each
+    BasicConv2d) with seeded random weights and BatchNorm statistics, keyed
+    by the port's InceptionV3FID."""
+    import torch
+
+    from lcgan_torch.eval.inception import InceptionV3FID
+
+    g = torch.Generator().manual_seed(7)
+    sd = {}
+    for key, t in InceptionV3FID(generator=g).state_dict().items():
+        prefix, leaf = key.rsplit(".", 1)
+        if leaf == "weight":
+            n = t.shape[0]
+            sd[f"{prefix}.conv.weight"] = t
+            sd[f"{prefix}.bn.weight"] = 1 + 0.1 * torch.randn(n, generator=g)
+            sd[f"{prefix}.bn.bias"] = 0.1 * torch.randn(n, generator=g)
+            sd[f"{prefix}.bn.running_mean"] = 0.1 * torch.randn(n, generator=g)
+            sd[f"{prefix}.bn.running_var"] = 0.5 + torch.rand(n, generator=g)
+            sd[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
+    torch.save(sd, path)
+
+
+def run_converter(tmp: str) -> None:
+    """(d) ``python -m lcgan_torch.eval.convert`` on a synthetic pytorch-fid
+    .pth in a fresh process; the .npz it writes loaded into InceptionV3FID on
+    the card: equal leaves and bitwise-equal features to the .pth read
+    directly, and the BatchNorm folded as the rule says."""
+    import numpy as np
+    import torch
+
+    from lcgan_torch.eval.convert import load_weights
+    from lcgan_torch.eval.fid import fp32_convs
+    from lcgan_torch.eval.inception import InceptionV3FID
+
+    pth, npz = os.path.join(tmp, "synthetic_pt_inception.pth"), os.path.join(tmp, "inception_fid.npz")
+    synthetic_inception_pth(pth)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lcgan_torch.eval.convert", pth, npz],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=300)
+    print(f"python -m lcgan_torch.eval.convert: rc {proc.returncode} in {time.perf_counter() - t0:.3f} s: "
+          f"{proc.stdout.strip()[-300:]}", flush=True)
+    check(proc.returncode == 0 and os.path.exists(npz) and "WARNING" in proc.stdout,
+          f"converter CLI wrote {os.path.basename(npz)} (and warned: not the reference fingerprint); "
+          f"stderr: {proc.stderr[-800:]}")
+    if proc.returncode:
+        return
+    from_npz, from_pth = load_weights(npz), load_weights(pth)
+    raw = torch.load(pth, map_location="cpu", weights_only=True)
+    p = "Mixed_6e.branch7x7_2"
+    gamma, beta, mean, var = (raw[f"{p}.bn.{k}"].numpy() for k in ("weight", "bias", "running_mean", "running_var"))
+    scale = gamma / np.sqrt(var + 1e-3)
+    with np.load(npz) as f:
+        hwio = f[f"{p.replace('.', '/')}/weight"].shape
+        n_keys = len(f.files)
+    check(from_npz.keys() == from_pth.keys() and all(torch.equal(from_npz[k], v) for k, v in from_pth.items())
+          and np.array_equal(from_npz[f"{p}.bn_scale"].numpy(), scale.astype(np.float32))
+          and np.array_equal(from_npz[f"{p}.bn_bias"].numpy(), (beta - mean * scale).astype(np.float32))
+          and hwio == tuple(raw[f"{p}.conv.weight"].permute(2, 3, 1, 0).shape),
+          f"the .npz ({n_keys} leaves, weights HWIO, e.g. {p} {hwio}) equals the .pth's folded leaves")
+    x = torch.rand((2, 3, 256, 256), generator=torch.Generator().manual_seed(3)) * 2 - 1
+    feats = []
+    for sd in (from_npz, from_pth):
+        net = InceptionV3FID()
+        net.load_state_dict(sd)
+        net = net.cuda().eval()
+        with torch.inference_mode(), fp32_convs():
+            feats.append(net(x.cuda()).cpu())
+    same = torch.equal(*feats)
+    check(same and bool(torch.isfinite(feats[0]).all()) and feats[0].shape == (2, 2048),
+          f"InceptionV3FID on the card from the .npz: features {tuple(feats[0].shape)} finite, bitwise equal to "
+          f"the .pth's: {same}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2162,6 +2640,20 @@ def main() -> int:
             stamp("step 8, fid_eval")
             run_video_generation(dp)
             stamp("step 8, video_generation")
+        for kernel, err in check_new_shapes().items():  # step 9: view batching, --beta1, --profile_dir, 1024², convert
+            worst[kernel] = max(worst[kernel], err)
+        check_view_batching()
+        stamp("step 9a (view batching on the card)")
+        run_view_batched_phase(data, os.path.join(tmp, "batched"))
+        time_batched_even_step()
+        stamp("step 9b (view-batched train phase, --beta1 0.5, --profile_dir)")
+    with tempfile.TemporaryDirectory(prefix="lcgan_smoke_1024_") as tmp:
+        data = os.path.join(tmp, "data")
+        synthetic_jpeg_folder(data, 16, 1024)
+        run_train_1024(data, os.path.join(tmp, "run"))
+        stamp("step 9c (1024² recipe)")
+        run_converter(tmp)
+        stamp("step 9d (Inception converter)")
     worst.update(check_probe_kernels())  # the probes: their own entry points
     times.update(time_gather_probe(bw))
     launches.update(run_probe_entry_points())

@@ -135,7 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "small-map CUDA kernels where they apply, e.g. 8 for the 8²-64² blocks)")
     p.add_argument("--warp_adaptive_band", default=True, action=argparse.BooleanOptionalAction,
                    help="JAX package only: flow-adaptive band of the Pallas warp")
-    p.add_argument("--profile_dir", type=str, default="", help="JAX package only: trace output dir")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="write a torch.profiler Chrome trace of epochs start+12 to start+20 here")
 
     # --- the port's own ---
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],

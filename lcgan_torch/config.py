@@ -9,9 +9,11 @@ small-map kernels where its Pallas entry would take them, else the general
 kernels; ``ops.warp.small_route``); on the CPU the warp is the plain
 version either way. ``warp_impl`` "none" is the JAX package's diagnostic
 ablation: the synthesis blocks skip the warp. ``distributed`` joins the
-process group of a ``torchrun`` launch (``lcgan_torch.parallel``). The other
-JAX backend knobs (``warp_adaptive_band``, ``profile_dir``, the remat
-switches) are kept only so that ``args.txt`` round-trips.
+process group of a ``torchrun`` launch (``lcgan_torch.parallel``).
+``view_batched_steps``, ``beta1`` and ``profile_dir`` act as in the JAX
+package (``train.steps``, ``train.state``, ``train.loop``). The other JAX
+backend knobs (``warp_adaptive_band``, the remat switches) are kept only so
+that ``args.txt`` round-trips.
 """
 
 from __future__ import annotations

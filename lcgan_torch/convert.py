@@ -15,8 +15,11 @@ leaf's state_dict key is its Flax path with ``.`` for ``/``. Layouts:
   * every other leaf as it is.
 
 Discriminator: the same rules (its convs, including the stride-2 ``conv1``,
-are HWIO → OIHW, its linears (in, out) → (out, in)). Adam: the ``v`` tree
-has its parameters' structure and takes their layouts; ``count`` is an int.
+are HWIO → OIHW, its linears (in, out) → (out, in)). Adam: with beta1 == 0
+the JAX package's mu-free state ``{"v": tree, "count"}``, otherwise optax's
+``(ScaleByAdamState(count, mu, nu), EmptyState())`` (``nu`` is the port's
+``v``); the moment trees have their parameters' structure and take their
+layouts, ``count`` is an int. The layout follows the port optimizer's type.
 A whole JAX ``TrainState`` loads into the port's ``TrainState``
 (``load_train_state``) and comes back as numpy trees
 (``flax_from_train_state``); the PRNG key is not carried (the two
@@ -29,10 +32,12 @@ checkpoints are not read here: that needs JAX.
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from lcgan_torch.train.state import Adam
 
 STATS = {"avg_latent1", "avg_latent2", "noise_const"}
 _UP2_CONV = re.compile(r"^block_\d+/(flow_layer|modulated_conv0)/modulated_conv/weight$")
@@ -114,14 +119,46 @@ def flax_from_discriminator(state_dict: Dict[str, torch.Tensor]) -> dict:
     return _unflatten(_to_flax(state_dict))
 
 
-def adam_from_flax(opt_state: dict) -> Tuple[Dict[str, torch.Tensor], int]:
-    """The JAX mu-free Adam state {"v": tree, "count"} → (v by parameter name, count)."""
-    return _to_torch(_flatten(opt_state["v"])), int(np.asarray(opt_state["count"]))
+class ScaleByAdamState(NamedTuple):
+    """optax's Adam state, field for field (as numpy trees)."""
+
+    count: np.ndarray
+    mu: dict
+    nu: dict
 
 
-def flax_from_adam(v: Dict[str, torch.Tensor], count: int) -> dict:
-    """(v by parameter name, count) → the JAX mu-free Adam state of numpy arrays."""
-    return {"v": _unflatten(_to_flax(v)), "count": np.asarray(count, np.int32)}
+class EmptyState(NamedTuple):
+    """optax's state of ``scale_by_learning_rate``: nothing."""
+
+
+def _copy_into(mine: Dict[str, torch.Tensor], flax_tree: dict, what: str) -> None:
+    theirs = _to_torch(_flatten(flax_tree))
+    if theirs.keys() != mine.keys():
+        raise KeyError(f"Adam {what} leaves differ: {sorted(theirs.keys() ^ mine.keys())}")
+    for key, value in theirs.items():
+        mine[key].copy_(value)
+
+
+def load_optimizer(opt, opt_state) -> None:
+    """A JAX optimizer state into the port's optimizer ``opt``, in place:
+    the mu-free ``{"v", "count"}`` into ``AdamNoMu``, optax's
+    ``(ScaleByAdamState, EmptyState)`` into ``Adam``."""
+    if isinstance(opt, Adam):
+        adam = opt_state[0]
+        _copy_into(opt.mu, adam.mu, "mu")
+        _copy_into(opt.v, adam.nu, "v")
+        opt.count = int(np.asarray(adam.count))
+    else:
+        _copy_into(opt.v, opt_state["v"], "v")
+        opt.count = int(np.asarray(opt_state["count"]))
+
+
+def flax_from_optimizer(opt):
+    """The port's optimizer as the JAX package's state of the same layout, numpy trees."""
+    count = np.asarray(opt.count, np.int32)
+    if isinstance(opt, Adam):
+        return ScaleByAdamState(count, _unflatten(_to_flax(opt.mu)), _unflatten(_to_flax(opt.v))), EmptyState()
+    return {"v": _unflatten(_to_flax(opt.v)), "count": count}
 
 
 def load_train_state(state, flax_state) -> None:
@@ -130,12 +167,8 @@ def load_train_state(state, flax_state) -> None:
     state.generator.load_state_dict(generator_from_flax(flax_state.g_params, flax_state.g_stats))
     state.ema.load_state_dict(generator_from_flax(flax_state.ema_params, flax_state.ema_stats))
     state.discriminator.load_state_dict(discriminator_from_flax(flax_state.d_params))
-    for opt, tree in ((state.g_opt, flax_state.g_opt), (state.d_opt, flax_state.d_opt)):
-        v, opt.count = adam_from_flax(tree)
-        if v.keys() != opt.v.keys():
-            raise KeyError(f"Adam v leaves differ: {sorted(v.keys() ^ opt.v.keys())}")
-        for key, value in v.items():
-            opt.v[key].copy_(value)
+    load_optimizer(state.g_opt, flax_state.g_opt)
+    load_optimizer(state.d_opt, flax_state.d_opt)
     state.step = int(np.asarray(flax_state.step))
 
 
@@ -150,6 +183,6 @@ def flax_from_train_state(state) -> dict:
         "d_params": flax_from_discriminator(state.discriminator.state_dict()),
         "ema_params": ema_params,
         "ema_stats": ema_stats,
-        "g_opt": flax_from_adam(state.g_opt.v, state.g_opt.count),
-        "d_opt": flax_from_adam(state.d_opt.v, state.d_opt.count),
+        "g_opt": flax_from_optimizer(state.g_opt),
+        "d_opt": flax_from_optimizer(state.d_opt),
     }

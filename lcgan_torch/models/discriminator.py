@@ -77,8 +77,8 @@ class DiscriminatorEpilogue(nn.Module):
             features * resolution * resolution, features, lr_mul=0.01, dtype=dtype, generator=generator
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = minibatch_stddev(x, group_size=self.mbstd_group_size)
+    def forward(self, x: torch.Tensor, num_views: int = 1) -> torch.Tensor:
+        x = minibatch_stddev(x, group_size=self.mbstd_group_size, num_views=num_views)
         x = leaky_relu(self.conv(x), 0.2)
         return leaky_relu(self.linear(x.flatten(1)), 0.2)
 
@@ -117,15 +117,17 @@ class Discriminator(nn.Module):
         self.projection_header2 = ProjectionHead([c * 16, c * 4, c, app_projection_dim], **kw)
 
     def forward(
-        self, image: torch.Tensor, get_embedding_features: bool = False
+        self, image: torch.Tensor, get_embedding_features: bool = False, num_views: int = 1
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         """image (B, img_ch, H, W) → (logit (B, 1), geometry and appearance
-        embeddings (B, dim) or None), in the compute dtype."""
+        embeddings (B, dim) or None), in the compute dtype. ``num_views``:
+        the image is that many view-batches stacked along the batch; only
+        mbstd sees it, everything else is per-sample."""
         x = image.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = leaky_relu(self.from_rgb(x), 0.2)
         for i in range(self.num_blocks):
             x = getattr(self, f"block_{i}")(x)
-        logit = self.logit_mapper(self.discriminator_epilogue(x))
+        logit = self.logit_mapper(self.discriminator_epilogue(x, num_views))
         if not get_embedding_features:
             return logit, None, None
         flat = x.flatten(1)

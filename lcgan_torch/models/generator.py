@@ -178,8 +178,15 @@ class Generator(nn.Module):
         rand_noise1: torch.Tensor,  # (B, geo_noise_dim)
         rand_noise2: torch.Tensor,  # (B, app_noise_dim)
         w_psi: float = -1.0,
+        num_views: int = 1,
     ) -> torch.Tensor:
-        """Returns (B, img_ch, H, W) images in the compute dtype."""
+        """Returns (B, img_ch, H, W) images in the compute dtype.
+
+        ``num_views > 1``: the batch is that many view-batches stacked along
+        it (the view-batched train step's even G step, lcgan_tpu/train/steps.py:124-153).
+        Everything is per-sample except the w-avg update, which replays one
+        lerp per view in stacking order, as separate calls would
+        (lcgan_tpu/models/generator.py:240-253)."""
         geometry_code = self.geometry_mapping(rand_noise1)
         appearance_code = self.appearance_mapping(rand_noise2)
 
@@ -187,12 +194,15 @@ class Generator(nn.Module):
             if self.training:
                 # new_avg = mean(w).lerp(avg, beta) = m + beta * (avg - m)
                 with torch.no_grad():
-                    means = [geometry_code.mean(dim=0), appearance_code.mean(dim=0)]
+                    means = [code.reshape(num_views, -1, code.shape[-1]).mean(dim=1)
+                             for code in (geometry_code, appearance_code)]  # (V, dim) each
                     # under data parallelism, the means over the global batch
-                    # (the JAX generator's mean_axis pmean, generator.py:248-250)
+                    # (the JAX generator's mean_axis pmean, generator.py:248-250):
+                    # every view's in one call, the all-reduce being elementwise
                     parallel.mean_all_reduce(means)
-                    for avg, m in zip((self.avg_latent1, self.avg_latent2), means):
-                        avg.copy_(m + self.w_avg_beta * (avg - m))
+                    for v in range(num_views):
+                        for avg, m in zip((self.avg_latent1, self.avg_latent2), means):
+                            avg.copy_(m[v] + self.w_avg_beta * (avg - m[v]))
         else:
             # avg.lerp(code, psi) = avg + psi * (code - avg)
             geometry_code = self.avg_latent1 + w_psi * (geometry_code - self.avg_latent1)

@@ -12,6 +12,14 @@ package's: ``args.txt``, ``epoch.txt``, ``log.txt`` (the exact line of
 loader.py:64-66), ``samples/``, ``model/`` (here ``model/state.pt`` and
 ``model/state_best.pt``), ``fakes/``, ``demo/``, ``fid.txt`` and
 ``best_fid.txt``.
+
+``--profile_dir`` traces the JAX package's window (lcgan_tpu/train/loop.py:85-99),
+counted from the start epoch: ``torch.profiler`` (the CPU and, on the card,
+CUDA activity) from epoch start+12 to min(start+20, ``--epoch``), each
+iteration under a ``train_iteration epoch N`` range, the device
+synchronized before it stops. Each rank writes its Chrome trace as
+``<profile_dir>/trace_epochs_<first>-<last>_rank<r>.json``. A run that ends
+before the window traces nothing.
 """
 
 from __future__ import annotations
@@ -114,6 +122,41 @@ def make_train_pipeline(cfg: Config, device: torch.device) -> DeviceFeeder:
     return DeviceFeeder(Prefetcher(pipeline, depth=2), device)
 
 
+class EpochProfiler:
+    """The ``--profile_dir`` window of a run that starts at ``start_epoch``."""
+
+    def __init__(self, cfg: Config, start_epoch: int, device: torch.device):
+        self.dir = cfg.profile_dir
+        self.first = start_epoch + 12  # past the first calls (the JAX package's compiles)
+        self.last = min(self.first + 8, cfg.epoch)
+        self.device = device
+        self.prof = None
+
+    @contextlib.contextmanager
+    def iteration(self, epoch: int) -> Iterator[None]:
+        """Around the iteration of ``epoch``: starts the trace at the
+        window's first epoch, stops it after its last."""
+        if self.dir and epoch == self.first:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+        if self.prof is None:
+            yield
+            return
+        with torch.profiler.record_function(f"train_iteration epoch {epoch}"):
+            yield
+        if epoch >= self.last:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.prof.stop()
+            os.makedirs(self.dir, exist_ok=True)
+            self.prof.export_chrome_trace(
+                os.path.join(self.dir, f"trace_epochs_{self.first}-{self.last}_rank{parallel.rank()}.json"))
+            self.prof, self.dir = None, ""
+
+
 def train(cfg: Config) -> TrainState:
     cfg.validate()
     cfg.make_run_dirs()
@@ -125,9 +168,12 @@ def train(cfg: Config) -> TrainState:
         trainer = Trainer(cfg)
         state, epoch = load_or_init_state(cfg, trainer)
         data = make_train_pipeline(cfg, trainer.device)
+        profiler = EpochProfiler(cfg, epoch, trainer.device)
         start_time = datetime.now()
         while epoch <= cfg.epoch:
-            state, g_loss, d_loss = trainer.train_iteration(state, next(data), epoch)
+            batch = next(data)
+            with profiler.iteration(epoch):
+                state, g_loss, d_loss = trainer.train_iteration(state, batch, epoch)
 
             if epoch % cfg.print_interval == 0 and main:
                 g, d = g_loss.item(), d_loss.item()  # averaged over the ranks

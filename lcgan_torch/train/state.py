@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,6 +67,61 @@ class AdamNoMu:
         self.count = int(sd["count"])
 
 
+class Adam:
+    """Adam with a first moment, for ``beta1 != 0``: optax's ``adam``
+    (``scale_by_adam`` + ``scale_by_learning_rate``, as lcgan_tpu/train/state.py:99-103
+    builds it) in its order of operations: ``mu ← b1·mu + (1−b1)·g``,
+    ``v ← b2·v + (1−b2)·g²``, both bias-corrected by ``1 − b^count``, and the
+    update ``−lr · mû / (sqrt(v̂) + eps)``.
+
+    Frozen leaves as in ``AdamNoMu``: a zero gradient, both moments decay,
+    no update. The state carries ``mu``, ``v`` and ``count``.
+    """
+
+    def __init__(self, module: nn.Module, lr: float, b1: float, b2: float, eps: float):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.mu = {name: torch.zeros_like(p) for name, p in module.named_parameters()}
+        self.v = {name: torch.zeros_like(p) for name, p in module.named_parameters()}
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+             frozen: Optional[Sequence[bool]] = None) -> None:
+        """Update ``params`` (in ``named_parameters`` order) in place."""
+        self.count += 1
+        mu, v = list(self.mu.values()), list(self.v.values())
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - self.b1))
+        torch._foreach_mul_(v, self.b2)
+        torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - self.b2))
+        c1, c2 = (float(np.float32(1.0) - np.float32(b) ** np.float32(self.count)) for b in (self.b1, self.b2))
+        denom = torch._foreach_div(v, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        updates = torch._foreach_div(mu, c1)
+        torch._foreach_div_(updates, denom)
+        torch._foreach_mul_(updates, -self.lr)
+        live = [i for i in range(len(params)) if not (frozen and frozen[i])]
+        torch._foreach_add_([params[i] for i in live], [updates[i] for i in live])
+
+    def state_dict(self) -> dict:
+        return {name: {k: t.detach().to("cpu", copy=True) for k, t in getattr(self, name).items()}
+                for name in ("mu", "v")} | {"count": self.count}
+
+    def load_state_dict(self, sd: dict) -> None:
+        for name in ("mu", "v"):
+            mine = getattr(self, name)
+            if sd[name].keys() != mine.keys():
+                raise KeyError(f"Adam {name} leaves differ: {sorted(sd[name].keys() ^ mine.keys())}")
+            with torch.no_grad():
+                for k, t in sd[name].items():
+                    mine[k].copy_(t)
+        self.count = int(sd["count"])
+
+
+Optimizer = Union[AdamNoMu, Adam]
+
+
 def _module_state(module: nn.Module) -> dict:
     """Parameters and buffers, copied to the CPU."""
     return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
@@ -78,8 +133,8 @@ class TrainState:
     generator: Generator  # g_params and the g_stats buffers
     discriminator: Discriminator
     ema: Generator  # ema_params and ema_stats
-    g_opt: AdamNoMu
-    d_opt: AdamNoMu
+    g_opt: Optimizer
+    d_opt: Optimizer
     rng: torch.Generator  # the iterations' noise, on the run's device
 
     def state_dict(self) -> dict:
@@ -111,11 +166,12 @@ def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> Tu
     return build_generator(cfg, generator), build_discriminator(cfg, generator)
 
 
-def make_optimizers(cfg: Config, g: nn.Module, d: nn.Module) -> Tuple[AdamNoMu, AdamNoMu]:
-    # Adam (beta1=0.0, beta2=0.99, eps=1e-8), worker.py:98-110
-    if cfg.beta1 != 0.0:
-        raise NotImplementedError("the port's Adam keeps no first moment: beta1 must be 0 (the reference's value)")
-    return AdamNoMu(g, cfg.g_lr, cfg.beta2, cfg.adam_eps), AdamNoMu(d, cfg.d_lr, cfg.beta2, cfg.adam_eps)
+def make_optimizers(cfg: Config, g: nn.Module, d: nn.Module) -> Tuple[Optimizer, Optimizer]:
+    # Adam (beta1=0.0, beta2=0.99, eps=1e-8), worker.py:98-110; optax.adam otherwise
+    if cfg.beta1 == 0.0:
+        return AdamNoMu(g, cfg.g_lr, cfg.beta2, cfg.adam_eps), AdamNoMu(d, cfg.d_lr, cfg.beta2, cfg.adam_eps)
+    return (Adam(g, cfg.g_lr, cfg.beta1, cfg.beta2, cfg.adam_eps),
+            Adam(d, cfg.d_lr, cfg.beta1, cfg.beta2, cfg.adam_eps))
 
 
 def create_train_state(cfg: Config, device: torch.device, seed: Optional[int] = None) -> TrainState:

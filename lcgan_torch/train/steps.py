@@ -26,7 +26,16 @@ Rank r's noise is rows r·b..(r+1)·b of a draw of the global batch from the
 shared stream, so the ranks draw distinct noise, the stream stays one state
 on every rank, and at world size 1 the draws are the one-process ones.
 
-Not ported yet: ``view_batched_steps`` (raises).
+``view_batched_steps`` stacks the even iteration's views as the JAX step
+does (lcgan_tpu/train/steps.py:124-153, 217-252): the G step's three views
+(anchor, geometry-resampled, appearance-resampled) go through G once at 3B
+and D once at 3B, the D step's four images (fake, real, geometry and
+appearance changes) through D once at 4B, and the odd step without R1 sends
+fake and real through D once at 2B (R1 keeps its real pass under its own
+gradient). mbstd takes per-view statistics and G replays the per-view
+w-avg lerps, so both forms compute the same values from the same six noise
+draws; on the card the batched form launches each warp kernel once a block
+where the unbatched one launches it once a view.
 """
 
 from __future__ import annotations
@@ -57,8 +66,6 @@ class Trainer:
     """Runs the schedule's iterations on the run's device."""
 
     def __init__(self, cfg: Config):
-        if cfg.view_batched_steps:
-            raise NotImplementedError("view_batched_steps is not ported yet; run with it off")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
 
@@ -89,15 +96,26 @@ class Trainer:
         g_net.train()
         d_net.train()
         z_g1, z_g2, z_r1, z_r2, z_d1, z_d2 = noise
+        batched = cfg.view_batched_steps
+        b = z_g1.shape[0]
 
         # ---------------- G step (worker.py:179-214) ----------------
-        anchor = g_net(z_g1, z_g2)
         if even:
-            res_geo = g_net(z_r1, z_g2)
-            res_app = g_net(z_g1, z_r2)
-            logit, geo_feat, app_feat = d_net(anchor, True)
-            _, geo_pos, app_neg = d_net(res_geo, True)
-            _, geo_neg, app_pos = d_net(res_app, True)
+            if batched:  # the three views through G and D once each, at 3B
+                views = g_net(torch.cat([z_g1, z_r1, z_g1]), torch.cat([z_g2, z_g2, z_r2]), num_views=3)
+                logits, geo_e, app_e = d_net(views, True, num_views=3)
+                logit = logits[:b]
+                # anchor → (feat, feat), res_geo → (geo_pos, app_neg),
+                # res_app → (geo_neg, app_pos): the unbatched triple's layout
+                geo_feat, geo_pos, geo_neg = geo_e.split(b)
+                app_feat, app_neg, app_pos = app_e.split(b)
+            else:
+                anchor = g_net(z_g1, z_g2)
+                res_geo = g_net(z_r1, z_g2)
+                res_app = g_net(z_g1, z_r2)
+                logit, geo_feat, app_feat = d_net(anchor, True)
+                _, geo_pos, app_neg = d_net(res_geo, True)
+                _, geo_neg, app_pos = d_net(res_app, True)
             adv = bce_logits(logit, 1.0)
             aux = (
                 contrastive_loss(geo_feat, geo_pos, geo_neg, cfg.tau)
@@ -108,7 +126,7 @@ class Trainer:
             ) * cfg.l_s
             g_loss = adv + aux + sp
         else:
-            g_loss = bce_logits(d_net(anchor, False)[0], 1.0)
+            g_loss = bce_logits(d_net(g_net(z_g1, z_g2), False)[0], 1.0)
         g_params = list(g_net.parameters())
         # grads of G's leaves only: the loss ran D with grads, D gets none
         g_grads = _grads(g_loss, g_params)
@@ -123,22 +141,38 @@ class Trainer:
         with torch.no_grad():  # training mode: the w averages update again
             fake = g_net(z_d1, z_d2)
         image = batch["image"]
-        fake_loss = bce_logits(d_net(fake, False)[0], 0.0)
-        if even:
-            real_logit, geo_feat, app_feat = d_net(image, True)
-            _, geo_pos, app_neg = d_net(batch["geometry_change"], True)
-            _, geo_neg, app_pos = d_net(batch["appearance_change"], True)
-            adv = bce_logits(real_logit, 1.0) + fake_loss
+        if even and batched:  # fake, real and the two changes through D once, at 4B
+            stacked = torch.cat([fake, image, batch["geometry_change"], batch["appearance_change"]])
+            logits, geo_e, app_e = d_net(stacked, True, num_views=4)
+            # the fake rows' embeddings are computed and unused
+            _, geo_feat, geo_pos, geo_neg = geo_e.split(b)
+            _, app_feat, app_neg, app_pos = app_e.split(b)
+            adv = bce_logits(logits[b:2 * b], 1.0) + bce_logits(logits[:b], 0.0)
             aux = (
                 contrastive_loss(geo_feat, geo_pos, geo_neg, cfg.tau)
                 + contrastive_loss(app_feat, app_pos, app_neg, cfg.tau)
             ) * cfg.l_aux
             d_loss = adv + aux
-        elif with_r1:
-            real_logit, r1 = r1_penalty_with_logits(lambda img: d_net(img, False)[0], image)
-            d_loss = bce_logits(real_logit, 1.0) + fake_loss + r1 * cfg.l_r1
+        elif batched and not with_r1:  # fake and real through D once, at 2B
+            logits = d_net(torch.cat([fake, image]), False, num_views=2)[0]
+            d_loss = bce_logits(logits[:b], 0.0) + bce_logits(logits[b:], 1.0)
         else:
-            d_loss = bce_logits(d_net(image, False)[0], 1.0) + fake_loss
+            fake_loss = bce_logits(d_net(fake, False)[0], 0.0)
+            if even:
+                real_logit, geo_feat, app_feat = d_net(image, True)
+                _, geo_pos, app_neg = d_net(batch["geometry_change"], True)
+                _, geo_neg, app_pos = d_net(batch["appearance_change"], True)
+                adv = bce_logits(real_logit, 1.0) + fake_loss
+                aux = (
+                    contrastive_loss(geo_feat, geo_pos, geo_neg, cfg.tau)
+                    + contrastive_loss(app_feat, app_pos, app_neg, cfg.tau)
+                ) * cfg.l_aux
+                d_loss = adv + aux
+            elif with_r1:
+                real_logit, r1 = r1_penalty_with_logits(lambda img: d_net(img, False)[0], image)
+                d_loss = bce_logits(real_logit, 1.0) + fake_loss + r1 * cfg.l_r1
+            else:
+                d_loss = bce_logits(d_net(image, False)[0], 1.0) + fake_loss
 
         d_params = list(d_net.parameters())
         mask = freeze_mask(d_net, cfg.freezeD_layer) if frozen else [False] * len(d_params)

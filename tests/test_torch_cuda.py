@@ -886,3 +886,68 @@ def test_inception_on_card_matches_cpu_with_tf32_off(dev, tmp_path, monkeypatch)
     finally:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     assert np.isfinite(value) and seen and all(flags == (False, False) for flags in seen)
+
+
+# (b, c, h, w) of the view-batched 256² G step's warps (three views of 8):
+# a 16² block and the two maps of 128² and up
+THREE_VIEW_SHAPES = [(24, 512, 16, 16), (24, 256, 128, 128), (24, 128, 256, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", THREE_VIEW_SHAPES)
+def test_kernels_at_three_views_match_plain(shape, dtype, dev):
+    """warp_fwd, warp_dgrid and warp_dx at B = 24 against their plain versions."""
+    x, grid = case(*shape, 0.1, dtype, dev)
+    g = cotangent(x)
+    out, dgrid, dx = warp.warp_fwd(x, grid), warp.warp_dgrid(x, grid, g), warp.warp_dx(grid, g)
+    ref_dx, ref_dgrid = grid_sample_bicubic_plain_backward(x, grid, g)
+    assert_fwd_matches_plain(out, grid_sample_bicubic_plain(x, grid))
+    assert (dgrid - ref_dgrid).abs().max().item() <= fp32_tol(ref_dgrid)
+    if dtype == torch.float32:
+        assert (dx - ref_dx).abs().max().item() <= fp32_tol(ref_dx)
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(ref_dx.float().abs().max())).item() - 7)
+        assert (dx.float() - ref_dx.float()).abs().max().item() <= ulp
+
+
+@pytest.mark.parametrize("view_batched_steps,beta1", [(True, 0.0), (False, 0.5)], ids=["view_batched", "beta1_0.5"])
+def test_iteration_on_card_matches_cpu(view_batched_steps, beta1, dev):
+    """Epochs 0, 1, 3 and 5 (frozen from 4) chained at the dryrun width in
+    fp32, the same weights, batch and noise on the card and on the CPU:
+    view-batched, and with Adam's first moment. Losses within 1e-4, every
+    leaf (Adam's moments included) within 1e-3 of its scale: cuDNN and the
+    kernels sum in other orders than the CPU."""
+    import numpy as np
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.steps import Trainer
+
+    kw = dict(model_name="unused", img_resolution=32, batch_size=4, geo_noise_dim=8, app_noise_dim=8,
+              geo_latent_dim=8, app_latent_dim=16, geo_projection_dim=8, app_projection_dim=8, base_nf=8, max_nf=16,
+              mbstd_group_size=2, compute_dtype="float32", adam_eps=1e-3, freezeD_start=4, freezeD_layer=1,
+              view_batched_steps=view_batched_steps, beta1=beta1)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(Config(**kw, device=device))
+        state = trainer.init_state()
+        rng = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(rng.uniform(-1, 1, (4, 3, 32, 32)).astype(np.float32)).to(device)
+                 for k in ("image", "geometry_change", "appearance_change")}
+        losses = []
+        for epoch in (0, 1, 3, 5):
+            noise = tuple(torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32)).to(device) for _ in range(6))
+            state, g_loss, d_loss = trainer.step_variant(epoch)(state, batch, noise)
+            losses.append((g_loss.item(), d_loss.item()))
+        leaves = {f"{name}.{k}": v.cpu() for name, m in (("G", state.generator), ("D", state.discriminator),
+                                                         ("EMA", state.ema)) for k, v in m.state_dict().items()}
+        for name in ("g_opt", "d_opt"):
+            for moment, tree in getattr(state, name).state_dict().items():
+                if moment != "count":
+                    leaves.update({f"{name}.{moment}.{k}": v for k, v in tree.items()})
+        runs[device] = (losses, leaves)
+    (card_losses, card), (cpu_losses, cpu) = runs["cuda"], runs["cpu"]
+    assert card.keys() == cpu.keys() and any(".mu." in k for k in cpu) == (beta1 != 0)
+    for a, b in zip(card_losses, cpu_losses):
+        assert all(abs(x - y) <= 1e-4 * max(1.0, abs(y)) for x, y in zip(a, b)), (a, b)
+    for k, v in cpu.items():
+        assert (card[k] - v).abs().max().item() <= 1e-3 * max(1e-3, v.abs().max().item()), k

@@ -183,11 +183,6 @@ def test_step_variant_schedule():
     assert flags[17]["with_r1"] and not flags[2]["with_r1"]
 
 
-def test_view_batched_steps_raises():
-    with pytest.raises(NotImplementedError, match="view_batched_steps"):
-        Trainer(Config(**CFG, device="cpu", view_batched_steps=True))
-
-
 def test_train_iteration_draws_seeded_noise():
     """The same seed gives the same iteration; the losses are finite."""
     results = []

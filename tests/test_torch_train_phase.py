@@ -141,14 +141,15 @@ def test_deterministic_algorithms_are_restored():
     assert (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.benchmark) == before
 
 
-def test_resume_is_bit_exact_in_a_fresh_process(tmp_path):
+@pytest.mark.parametrize("beta1", [0.0, 0.5])
+def test_resume_is_bit_exact_in_a_fresh_process(tmp_path, beta1):
     """N epochs → save → restore in a fresh process → M more must equal an
     uninterrupted N+M run bit for bit: G, D and EMA leaves and buffers, both
-    Adam v trees and counts, step and the noise generator's state. Epochs
-    0-7 cover the schedule period (4 even, 1 odd + R1, 3 odd), frozen from
-    epoch 6."""
+    Adam v trees (and mu trees, beta1 != 0) and counts, step and the noise
+    generator's state. Epochs 0-7 cover the schedule period (4 even, 1 odd +
+    R1, 3 odd), frozen from epoch 6."""
     n, m = 4, 4
-    cfg, trainer, oracle = tiny_state(str(tmp_path / "run"))
+    cfg, trainer, oracle = tiny_state(str(tmp_path / "run"), beta1=beta1)
     with deterministic_algorithms():
         for epoch in range(n + m):
             oracle, _, _ = trainer.train_iteration(oracle, fake_batch(cfg, epoch), epoch)
@@ -158,7 +159,7 @@ def test_resume_is_bit_exact_in_a_fresh_process(tmp_path):
     save_state(state_path(cfg), state)
 
     worker = os.path.join(os.path.dirname(__file__), "torch_resume_worker.py")
-    proc = subprocess.run([sys.executable, worker, cfg.model_name, str(n), str(n + m)],
+    proc = subprocess.run([sys.executable, worker, cfg.model_name, str(n), str(n + m), str(beta1)],
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     resumed = trainer.init_state()
@@ -167,8 +168,10 @@ def test_resume_is_bit_exact_in_a_fresh_process(tmp_path):
     want, got = oracle.state_dict(), resumed.state_dict()
     mismatches = [f"{part}.{k}" for part in ("generator", "discriminator", "ema")
                   for k, v in want[part].items() if not torch.equal(got[part][k], v)]
-    mismatches += [f"{opt}.v.{k}" for opt in ("g_opt", "d_opt")
-                   for k, v in want[opt]["v"].items() if not torch.equal(got[opt]["v"][k], v)]
+    moments = ("v", "mu") if beta1 else ("v",)
+    assert set(want["g_opt"]) == {*moments, "count"}
+    mismatches += [f"{opt}.{mom}.{k}" for opt in ("g_opt", "d_opt") for mom in moments
+                   for k, v in want[opt][mom].items() if not torch.equal(got[opt][mom][k], v)]
     assert not mismatches, f"resume not bit-exact in: {mismatches}"
     assert got["step"] == want["step"] == n + m
     assert got["g_opt"]["count"] == want["g_opt"]["count"] and got["d_opt"]["count"] == want["d_opt"]["count"]

@@ -6,7 +6,7 @@ Builds the trainer from the config, restores ``<run>/model/state.pt``
 seeded fake batches, and saves the state to ``<run>/model_resumed/state.pt``.
 The parent compares it bitwise to an uninterrupted run. Imports no JAX.
 
-Usage: python torch_resume_worker.py <model_name> <start_epoch> <end_epoch>
+Usage: python torch_resume_worker.py <model_name> <start_epoch> <end_epoch> [beta1]
 """
 
 import os
@@ -33,8 +33,8 @@ def fake_batch(cfg: Config, epoch: int) -> dict:
     return {k: torch.rand(shape, generator=g) * 2 - 1 for k in ("image", "geometry_change", "appearance_change")}
 
 
-def main(model_name: str, start_epoch: int, end_epoch: int) -> None:
-    cfg = Config(model_name=model_name, **CFG)
+def main(model_name: str, start_epoch: int, end_epoch: int, beta1: float = 0.0) -> None:
+    cfg = Config(model_name=model_name, **CFG, beta1=beta1)
     with deterministic_algorithms():
         trainer = Trainer(cfg)
         state = trainer.init_state()
@@ -45,4 +45,4 @@ def main(model_name: str, start_epoch: int, end_epoch: int) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), *map(float, sys.argv[4:5]))
