@@ -90,10 +90,9 @@
    losses be finite; a second call must resume from epoch.txt + 1, and
    fake_image_generation must read the checkpoint. Then: the 8-iteration
    mix fed by the port's own pipeline (MIX_WINDOWS_512 windows, images/s and
-   peak memory), an even step with and without deterministic algorithms,
-   an even-step profile (warp_fwd's, warp_dgrid's, warp_dx's and
-   warp_dx_scatter's device ms by name),
-   bit-exact resume at 512² in a fresh process, and
+   peak memory), an even step with and without deterministic algorithms
+   (its profile, the warp kernels' device ms by name, is step 10b's remat
+   off form, on a fresh seeded state and a synthetic batch), bit-exact resume at 512² in a fresh process, and
    the training monitor once at full width (num_explore 1).
 7. Drives the small-map route, the main path of this slice: `python -m
    lcgan_torch.cli --phase train` at the flagship 256² recipe with
@@ -133,8 +132,9 @@
 9. Drives this slice's paths: view batching, Adam with beta1 != 0,
    --profile_dir, the 1024² recipe and the Inception converter's CLI.
    First warp_fwd, warp_dgrid and warp_dx / warp_dx_scatter against their
-   plain versions at the shapes these paths give them first (every block of
-   the view-batched 256² G step at B = 24; of the 1024² recipe at B = 4).
+   plain versions at the shapes these paths and step 10's give them first
+   (every block of the view-batched 256² G step at B = 24; of the 1024²
+   recipe at B = 4; the 512² recipe's blocks of 128² and up at B = 32).
    (a) The flagship 256² recipe in fp32 (deterministic, cuDNN off,
    adam_eps 1): one iteration of epochs 0, 1, 3 and 5 (frozen from 4) from
    one state with the same batch and noise, unbatched and with
@@ -159,7 +159,33 @@
    (d) `python -m lcgan_torch.eval.convert` on a synthetic pytorch-fid .pth;
    the .npz it writes loaded into InceptionV3FID on the card, its leaves and
    features equal to the .pth's.
-10. The probes (lcgan_torch.tools), whose path is their own entry points:
+10. Drives this slice's path, the remat switches, and the 512² recipe at
+   its global batch of 32 on one card.
+   (a) The flagship 256² recipe in fp32 under the train phase's
+   deterministic settings: one iteration of epochs 0, 1, 3 and 5 (frozen
+   from 4) from one state with the same batch and noise, remat off and
+   under each policy (no saves; the JAX saves; the saves with
+   remat_save_max_res 64), then epoch 0 on the small-map route: losses and
+   every gradient bitwise equal to remat off's, and under remat one more
+   forward-warp launch for each grid-gradient launch (the recompute's).
+   (b) The 512² recipe's even step (bf16, batch 8, deterministic) with
+   remat off, on without saves and on with the JAX saves: each alone, its
+   peak memory and warp launches (K1 28 off, 49 on; K2 21, K3 18, K4 3),
+   and its first step from one seeded state, batch and noise, whose losses
+   and gradients must be bitwise equal across the forms (K4 and bf16 under
+   remat);
+   then in turns (O, N, S, S, N, O), host ms, device ms, idle share and
+   K1's device ms (profiler on); then remat off at batch 16 alone, and the
+   linear extrapolation of its peak to batch 32 against the card's memory.
+   (c) `python -m lcgan_torch.cli --phase train` at the 512² recipe with
+   batch 32 and --remat_blocks, epochs 0-3 on 32 synthetic 512² JPEGs:
+   counts set to 0 just before and read just after (warp_fwd 84 + 56
+   recompute launches = 140, warp_dgrid 56, warp_dx 48, warp_dx_scatter 8),
+   finite losses, peak memory under the card's; generation from its
+   checkpoint (remat on, no_grad) warp_fwd 7 a batch, as without remat;
+   then one window of the 8-iteration mix on the port's pipeline
+   (images/s, peak memory).
+11. The probes (lcgan_torch.tools), whose path is their own entry points:
    gather_probe against take_along_dim on the (256, 128) fp32 tile,
    exactly, for random, all-0 and all-255 indices; dyn_trip_static and
    dyn_trip_dyn against an fp64 sum at 16 packs (n = 16, 8 and, for the
@@ -171,10 +197,10 @@
    just before and read just after (gather_probe 41 launches, dyn_trip_static
    4130, dyn_trip_dyn 8258), and once more as `python -m` in a fresh
    process, and checks the rows A, B, C and the GO / NO-GO line.
-11. Prints the whole run's wall time, each kernel's time and bound per
+12. Prints the whole run's wall time, each kernel's time and bound per
    launch (a row's sums over the calls it times) with launches x (time -
    bound), the kernels as one JSON line (launches from step 6, from step 7
-   for the small-map kernels and from step 10 for the probes'), the card's
+   for the small-map kernels and from step 11 for the probes'), the card's
    name and power limit, and last the ok line.
    Exits nonzero, printing no result, on any failure and when no GPU is
    present.
@@ -184,6 +210,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -1383,8 +1410,8 @@ def run_train_phase(data: str, run: str) -> dict:
 def run_train_512(data: str, run: str) -> None:
     """The 512² recipe on the port's own pipeline: the 8-iteration mix as
     synchronized windows (images/s, peak memory), an even step with and
-    without deterministic algorithms, an even-step profile, and the monitor
-    once at full width."""
+    without deterministic algorithms (profiled in step 10b, remat off), and
+    the monitor once at full width."""
     import torch
 
     from lcgan_torch.config import Config
@@ -1442,10 +1469,6 @@ def run_train_512(data: str, run: str) -> None:
     print(f"train step even at 512²: deterministic {det_ms:.2f} ms, not deterministic {free_ms:.2f} ms "
           f"(deterministic mode costs {det_ms / free_ms - 1:+.1%}; all: {', '.join(f'{t:.1f}' for t in runs[True])} / "
           f"{', '.join(f'{t:.1f}' for t in runs[False])})", flush=True)
-    with deterministic_algorithms():
-        noise = trainer.draw_noise(state, cfg.batch_size)
-        profile_forward(lambda: trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False),
-                        iters=2, top=16, what="even train step at 512² (deterministic)")
 
     epoch = 8 * (MIX_WINDOWS_512 + 1)
     t0 = time.perf_counter()
@@ -2145,6 +2168,9 @@ def run_probe_entry_points() -> dict:
 # (base_nf 32: C = 512 at 8²-64², then 256, 128, 64, 32)
 BATCHED_WARPS = [(3 * b, c, h) for b, c, h in MAIN_PATH_WARPS]
 RECIPE_1024_WARPS = [(4, c, h) for _, c, h in MAIN_PATH_WARPS] + [(4, 64, 512), (4, 32, 1024)]
+# (B, C, H) of the 512² recipe's warps of 128² and up at its global batch of
+# 32 (step 10c: K1-K3 at 128²·C256 and 256²·C128, K1, K2 and K4 at 512²·C64)
+RECIPE_512_B32_WARPS = [(32, 256, 128), (32, 128, 256), (32, 64, 512)]
 TRAIN_1024 = ["--img_resolution", "1024", "--batch_size", "4", "--g_lr", "1e-3", "--d_lr", "1e-3",
               "--freezeD_layer", "5", "--num_data_workers", "4"]
 BATCHED_TURNS = ("unbatched", "batched", "batched", "unbatched")  # the 256² even step, in turns
@@ -2153,10 +2179,11 @@ EVEN_STEPS_A_TURN = 2
 
 def check_new_shapes() -> dict:
     """warp_fwd, warp_dgrid and warp_dx (C >= 128) or warp_dx_scatter
-    (C < 128) against their plain versions at the shapes this step's paths
+    (C < 128) against their plain versions at the shapes steps 9 and 10
     give them first: every block of the view-batched 256² G step at B = 24,
-    and of the 1024² recipe at B = 4 (fp32 1e-5 x max(1, scale), bf16 one
-    ulp of the scale; iid flow, s = 0.1). The shapes the earlier steps hold
+    of the 1024² recipe at B = 4, and the 512² recipe's blocks of 128² and
+    up at B = 32 (fp32 1e-5 x max(1, scale), bf16 one ulp of the scale; iid
+    flow, s = 0.1). The shapes the earlier steps hold
     (1024²·C32 at B = 4 for warp_fwd and warp_dx_scatter) are not repeated.
     Returns each kernel's largest fp32 error."""
     import torch
@@ -2165,7 +2192,7 @@ def check_new_shapes() -> dict:
     from lcgan_torch.ops.warp import warp_dgrid, warp_dx
 
     worst = dict.fromkeys(GENERAL_KERNELS, 0.0)
-    for b, c, h in BATCHED_WARPS + RECIPE_1024_WARPS:
+    for b, c, h in BATCHED_WARPS + RECIPE_1024_WARPS + RECIPE_512_B32_WARPS:
         for dtype in (torch.float32, torch.bfloat16):
             x, grid = warp_inputs(b, c, h, 0.1, dtype, seed=4)
             g = cotangent_like(x, seed=5)
@@ -2199,6 +2226,16 @@ def check_new_shapes() -> dict:
     return worst
 
 
+def record_grads(opt, grads: dict, key) -> None:
+    """Make ``opt.step`` keep a copy of the gradients it receives in grads[key]."""
+    step = opt.step
+
+    def record(params, g, frozen=None):
+        grads[key] = [t.detach().clone() for t in g]
+        step(params, g, frozen)
+    opt.step = record
+
+
 def check_view_batching() -> None:
     """(a) The flagship 256² recipe in fp32 (batch 8) in deterministic mode:
     one iteration of each variant, epochs 0 (even), 1 (odd + R1), 3 (odd)
@@ -2224,22 +2261,13 @@ def check_view_batching() -> None:
     cfg = Config(model_name="chip_smoke_batched", img_resolution=256, batch_size=8, compute_dtype="float32",
                  adam_eps=1.0, freezeD_start=4, freezeD_layer=5, seed=0, device="cuda")
     grads = {}
-
-    def recording(opt, key):
-        step = opt.step
-
-        def record(params, g, frozen=None):
-            grads[key] = [t.detach().clone() for t in g]
-            step(params, g, frozen)
-        opt.step = record
-
     cudnn_off = torch.backends.cudnn.flags(enabled=False, benchmark=False, deterministic=True, allow_tf32=False)
     with deterministic_algorithms(), cudnn_off:
         forms = {flag: Trainer(dataclasses.replace(cfg, view_batched_steps=flag)) for flag in (False, True)}
         states = {flag: trainer.init_state() for flag, trainer in forms.items()}
         for flag, state in states.items():
-            recording(state.g_opt, (flag, "G"))
-            recording(state.d_opt, (flag, "D"))
+            record_grads(state.g_opt, grads, (flag, "G"))
+            record_grads(state.d_opt, grads, (flag, "D"))
         names = {"G": [n for n, _ in states[False].generator.named_parameters()],
                  "D": [n for n, _ in states[False].discriminator.named_parameters()]}
         start = states[False].state_dict()
@@ -2584,6 +2612,310 @@ def run_converter(tmp: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# step 10: the remat switches, and the 512² recipe at its global batch of 32
+# on one card
+
+# form: (remat_blocks, conv saves for G and D, remat_save_max_res)
+REMAT_FORMS = {"off": (False, True, 1024), "plain": (True, False, 1024), "saves": (True, True, 1024),
+               "saves64": (True, True, 64)}
+REMAT_TURNS = ("off", "plain", "saves", "saves", "plain", "off")  # the 512² even step, in turns
+TRAIN_512_B32 = ["--img_resolution", "512", "--batch_size", "32", "--freezeD_layer", "4", "--num_data_workers", "4",
+                 "--remat_blocks"]
+
+
+def remat_config(cfg, form: str):
+    on, save, max_res = REMAT_FORMS[form]
+    return dataclasses.replace(cfg, remat_blocks=on, remat_save_g_convs=save, remat_save_d_convs=save,
+                               remat_save_max_res=max_res)
+
+
+def check_remat_bitwise() -> None:
+    """(a) The flagship 256² recipe in fp32 under the train phase's
+    deterministic settings (``deterministic_algorithms``: cuDNN on, its
+    algorithm fixed per shape): one iteration of epochs 0 (even), 1 (odd +
+    R1), 3 (odd) and 5 (odd, frozen from 4) from one state with the same
+    batch and noise, with remat off and under each policy (no saves; the JAX
+    saves; the saves with remat_save_max_res 64, so G's 128² and 256² blocks
+    and D's 256² and 128² blocks take the plain remat), then epoch 0 on the
+    small-map route (warp_pallas_min_res 8: K5-K7 on the 8²-64² blocks).
+    The losses and every gradient Adam receives must be bitwise equal to
+    remat off's: the recompute runs the same kernels on the same inputs.
+    Each iteration's warp launches are counted: under remat, each launch of
+    a grid-gradient kernel (one per differentiated block application) comes
+    with one more forward launch on the same route, the recompute's."""
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.loop import deterministic_algorithms
+    from lcgan_torch.train.steps import Trainer
+
+    cfg = Config(model_name="chip_smoke_remat", img_resolution=256, batch_size=8, compute_dtype="float32",
+                 freezeD_start=4, freezeD_layer=5, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        for route, min_res, epochs in (("general", 128, (0, 1, 3, 5)), ("small-map", 8, (0,))):
+            base = dataclasses.replace(cfg, warp_pallas_min_res=min_res)
+            trainers = {form: Trainer(remat_config(base, form)) for form in REMAT_FORMS}
+            states = {form: trainer.init_state() for form, trainer in trainers.items()}
+            grads = {}
+            for form, state in states.items():
+                record_grads(state.g_opt, grads, (form, "G"))
+                record_grads(state.d_opt, grads, (form, "D"))
+            start = states["off"].state_dict()
+            batch = synthetic_batch(cfg, torch.device("cuda"), seed=1)
+            g = torch.Generator(device="cuda").manual_seed(2)
+            for epoch in epochs:
+                noise = tuple(torch.randn((8, 64), generator=g, device="cuda") for _ in range(6))
+                losses, launches = {}, {}
+                for form, trainer in trainers.items():
+                    state = states[form]
+                    state.load_state_dict(start)
+                    reset_launches()
+                    _, g_loss, d_loss = trainer.step_variant(epoch)(state, batch, noise)
+                    losses[form] = (g_loss, d_loss)
+                    launches[form] = {k: n for k, n in read_launches().items() if n}
+                ref, off = losses["off"], launches["off"]
+                want = dict(off)
+                for fwd, dgrid in (("warp_fwd", "warp_dgrid"), ("warp_fwd_small", "warp_dgrid_small")):
+                    if dgrid in off:
+                        want[fwd] += off[dgrid]
+                check(all(launches[form] == want for form in list(REMAT_FORMS)[1:]),
+                      f"warp launches, {route} route, epoch {epoch}: off {off}, under remat {launches['plain']} "
+                      f"(saves {launches['saves']}, saves64 {launches['saves64']}; expect a forward launch more for "
+                      f"each grid-gradient launch)")
+                for form in list(REMAT_FORMS)[1:]:
+                    same_loss = all(torch.equal(a, b) for a, b in zip(losses[form], ref))
+                    same_grads = {net: all(torch.equal(a, b) for a, b in zip(grads[(form, net)], grads[("off", net)]))
+                                  for net in ("G", "D")}
+                    finite = all(math.isfinite(v.item()) for v in losses[form])
+                    check(finite and same_loss and all(same_grads.values()),
+                          f"remat {form} against remat off, flagship 256² fp32, {route} route, epoch {epoch}: losses "
+                          f"(g, d) {losses[form][0].item():.6f}, {losses[form][1].item():.6f} bitwise equal {same_loss}; "
+                          f"gradients bitwise equal: G ({len(grads[(form, 'G')])} leaves) {same_grads['G']}, "
+                          f"D ({len(grads[(form, 'D')])}) {same_grads['D']}")
+            del trainers, states, grads, start, batch
+            torch.cuda.empty_cache()
+    print(f"remat card check: 5 iterations x 4 forms in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def even_step_alone(cfg) -> dict:
+    """A fresh state's even step at cfg (deterministic), after one to warm
+    up: its peak memory (GiB: what the state, the batch and the step
+    allocate, above what was allocated before the state was built, after
+    earlier steps' garbage such as record_grads' reference cycles is
+    collected) and the warp launches of the second step, with the trainer,
+    the state and the batch for more steps. The first step's losses and the
+    gradients Adam receives are kept on the host ("first": G, D, losses),
+    out of the second step's peak."""
+    import torch
+
+    from lcgan_torch.train.loop import deterministic_algorithms
+    from lcgan_torch.train.steps import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    with deterministic_algorithms():
+        trainer = Trainer(cfg)
+        state = trainer.init_state()
+        batch = synthetic_batch(cfg, trainer.device)
+        first = {}
+        record_grads(state.g_opt, first, "G")
+        record_grads(state.d_opt, first, "D")
+        _, g_loss, d_loss = trainer._iteration(state, batch, trainer.draw_noise(state, cfg.batch_size), even=True,
+                                               with_r1=False, frozen=False)
+        del state.g_opt.step, state.d_opt.step  # the optimizers' own step again
+        first = {net: [t.cpu() for t in grads] for net, grads in first.items()}
+        first["losses"] = (g_loss.cpu(), d_loss.cpu())
+        del g_loss, d_loss
+        noise = trainer.draw_noise(state, cfg.batch_size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in read_launches().items() if n}
+        peak = torch.cuda.max_memory_allocated() / 2**30 - resident
+    print(f"  ({resident:.3f} GiB allocated before the {cfg.img_resolution}² batch-{cfg.batch_size} state was built, "
+          "not counted)", flush=True)
+    return dict(trainer=trainer, state=state, batch=batch, peak=peak, launches=launches, first=first)
+
+
+def time_remat_512() -> dict:
+    """(b) The 512² recipe's even step (bf16, batch 8, deterministic) with
+    remat off (O), on without saves (N) and on with the JAX saves (S). Each
+    form alone first (the earlier forms' states stay, their bytes not
+    counted): its peak memory and the warp launches of one step (off 28,
+    21, 18, 3 for K1-K4; on, K1 49: the G step's three differentiated G
+    applications recompute their seven blocks, each relaunching K1 to
+    rebuild the warp's saved inputs), and its first step's losses and
+    gradients, which must be bitwise equal across the forms: the three
+    states, batches and noises come from one seed, so this holds K4 and bf16
+    under remat to remat off. Then the three forms in turns (O, N,
+    S, S, N, O), each turn EVEN_STEPS_A_TURN steps on the host clock; each
+    form's first turn then profiles one (device ms, idle share, K1's device
+    ms). Last, remat off at batch 16, alone, and the linear extrapolation of
+    the off peak to batch 32 against the card's memory (nothing is run at
+    32 without remat). Returns the forms' figures."""
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.loop import deterministic_algorithms
+
+    cfg = Config(model_name="chip_smoke_remat_512", img_resolution=512, batch_size=8, freezeD_layer=4,
+                 freezeD_start=10**9, device="cuda")
+    forms = ("off", "plain", "saves")
+    runs = {}
+    for form in forms:
+        runs[form] = dict(even_step_alone(remat_config(cfg, form)), host=[], device=[], idle=[], k1=[])
+        print(f"remat {form} at 512², batch 8, even step alone: peak memory {runs[form]['peak']:.2f} GiB; warp "
+              f"launches {runs[form]['launches']}", flush=True)
+    want = dict(warp_fwd=28, warp_dgrid=21, warp_dx=18, warp_dx_scatter=3)
+    check(runs["off"]["launches"] == want and all(runs[f]["launches"] == dict(want, warp_fwd=49) for f in forms[1:]),
+          f"warp launches per 512² even iteration: off {runs['off']['launches']}, plain {runs['plain']['launches']}, "
+          f"saves {runs['saves']['launches']} (expect K1 28 off and 49 under remat: +7 a differentiated G "
+          f"application; K2 21, K3 18, K4 3 in every form)")
+    check(runs["plain"]["peak"] < runs["off"]["peak"] and runs["saves"]["peak"] < runs["off"]["peak"],
+          f"remat lowers the 512² batch-8 peak: off {runs['off']['peak']:.2f}, plain {runs['plain']['peak']:.2f}, "
+          f"saves {runs['saves']['peak']:.2f} GiB")
+    ref = runs["off"]["first"]
+    for form in forms[1:]:
+        got = runs[form].pop("first")
+        same_loss = all(torch.equal(a, b) for a, b in zip(got["losses"], ref["losses"]))
+        same_grads = {net: len(got[net]) == len(ref[net]) and all(torch.equal(a, b) for a, b in zip(got[net], ref[net]))
+                      for net in ("G", "D")}
+        finite = all(math.isfinite(v.item()) for v in got["losses"])
+        check(finite and same_loss and all(same_grads.values()),
+              f"remat {form} against remat off, 512² bf16 batch 8, the first even step from one seeded state, batch "
+              f"and noise: losses (g, d) {got['losses'][0].item():.6f}, {got['losses'][1].item():.6f} bitwise equal "
+              f"{same_loss}; gradients bitwise equal: G ({len(got['G'])} leaves) {same_grads['G']}, "
+              f"D ({len(got['D'])}) {same_grads['D']}")
+    del runs["off"]["first"], ref, got
+
+    with deterministic_algorithms():
+        for form in REMAT_TURNS:
+            r = runs[form]
+            trainer, state, batch = r["trainer"], r["state"], r["batch"]
+            for _ in range(EVEN_STEPS_A_TURN):
+                noise = trainer.draw_noise(state, 8)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer._iteration(state, batch, noise, even=True, with_r1=False, frozen=False)
+                torch.cuda.synchronize()
+                r["host"].append((time.perf_counter() - t0) * 1e3)
+            if r["device"]:  # one profile a form
+                continue
+            noise = trainer.draw_noise(state, 8)
+            prof = profile_forward(lambda: trainer._iteration(state, batch, noise, even=True, with_r1=False,
+                                                              frozen=False),
+                                   iters=1, top=16 if form == "off" else 4,
+                                   what=f"even train step at 512², remat {form}")
+            r["device"].append(prof["device_ms"])
+            r["idle"].append(prof["idle"])
+            r["k1"].append(prof["warp_fwd_ms"])
+    for r in runs.values():
+        del r["trainer"], r["state"], r["batch"]
+    del trainer, state, batch, noise
+    o = runs["off"]
+    for form in forms:
+        r = runs[form]
+        r["host_ms"], r["device_ms"] = statistics.median(r["host"]), r["device"][0]
+        print(f"train step even at 512², remat {form}, 2 turns of {EVEN_STEPS_A_TURN} in turns (O, N, S, S, N, O): "
+              f"host ms median {r['host_ms']:.2f} (all {', '.join(f'{t:.1f}' for t in r['host'])}); device ms "
+              f"{r['device_ms']:.2f}, idle {r['idle'][0]:.1%} (profiler on); K1 {r['k1'][0]:.3f} ms device; peak "
+              f"{r['peak']:.2f} GiB; against off: host {r['host_ms'] / o['host_ms'] - 1:+.1%}, device "
+              f"{r['device_ms'] / o['device_ms'] - 1:+.1%}, peak {r['peak'] / o['peak'] - 1:+.1%}", flush=True)
+
+    alone16 = even_step_alone(dataclasses.replace(cfg, batch_size=16))
+    peak16 = alone16["peak"]
+    del alone16
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    peak32 = peak16 + 2 * (peak16 - o["peak"])
+    print(f"remat off at 512², even step alone: peak {o['peak']:.2f} GiB at batch 8, {peak16:.2f} GiB at batch 16; "
+          f"linear to batch 32: {peak32:.2f} GiB against the card's {total:.2f} GiB "
+          f"({'over' if peak32 > total else 'under'} it)", flush=True)
+    check(peak16 > o["peak"], f"the off peak grows with the batch: {o['peak']:.2f} -> {peak16:.2f} GiB")
+    return dict(runs, peak16=peak16, peak32_linear=peak32, total=total)
+
+
+def run_train_512_b32(data: str, run: str) -> dict:
+    """(c) The slice: ``python -m lcgan_torch.cli --phase train`` at the
+    512² recipe with its global batch of 32 on one card, under
+    ``--remat_blocks`` (the JAX saves), epochs 0-3 on a seeded folder of 32
+    synthetic 512² JPEGs (one full batch). Counts set to 0 just before and
+    read just after: warp_fwd 84 + 56 recompute launches (7 blocks x 8
+    differentiated G applications) = 140, warp_dgrid 56, warp_dx 48,
+    warp_dx_scatter 8, as at batch 8. Finite losses; the phase's peak
+    memory under the card's. Generation from the run's checkpoint (remat on
+    in its args.txt) launches warp_fwd 7 a batch, as without remat. Then
+    one window of the 8-iteration mix on the port's pipeline (images/s,
+    peak). Returns the phase's launches."""
+    import torch
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.loop import deterministic_algorithms, make_train_pipeline
+    from lcgan_torch.train.steps import Trainer
+
+    argv = ["--phase", "train", "--dataset_path", data, "--model_name", run, *TRAIN_512_B32, "--epoch", "3",
+            "--save_interval", "3", "--print_interval", "1", "--show_interval", "1000"]
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  ({torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated before the phase)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak_phase = torch.cuda.max_memory_allocated() / 2**30
+    print(f"512² recipe at batch 32, --remat_blocks: epochs 0-3 through the CLI in {seconds:.3f} s (first calls, data "
+          f"and one save included); peak memory {peak_phase:.2f} GiB of the card's {total:.2f}", flush=True)
+    expect = dict(dict.fromkeys(KERNELS, 0), warp_fwd=7 * 12 + 7 * 8, warp_dgrid=7 * 8, warp_dx=6 * 8,
+                  warp_dx_scatter=1 * 8)
+    for name, n in launches.items():
+        check(n == expect[name], f"{name} launches on the 512² batch-32 remat phase, epochs 0-3: {n} "
+                                 f"(expect {expect[name]})")
+    lines = log_epochs(run)
+    cfg = Config.load(os.path.join(run, "args.txt"))
+    check(lines is not None and [e for e, _, _ in lines] == [0, 1, 2, 3]
+          and all(math.isfinite(v) for _, g, d in lines for v in (g, d)) and "restart training from" not in out
+          and cfg.remat_blocks and cfg.batch_size == 32 and peak_phase < total,
+          f"512² batch-32 remat phase: log.txt epochs 0-3, finite losses {lines}; args.txt remat_blocks "
+          f"{cfg.remat_blocks}, batch_size {cfg.batch_size}; peak {peak_phase:.2f} < {total:.2f} GiB")
+    reset_launches()  # generation from this run (remat on in its args.txt) runs no_grad: no recompute
+    run_cli(["--phase", "fake_image_generation", "--model_name", run, "--num_fakes", "1", "--batch_size", "8"])
+    gen = {k: n for k, n in read_launches().items() if n}
+    check(gen == {"warp_fwd": 7}, f"launches of fake_image_generation from the remat run (one batch of 8): {gen} "
+                                  "(expect warp_fwd 7, as without remat)")
+
+    with deterministic_algorithms():
+        trainer = Trainer(cfg)
+        state = trainer.init_state()
+        data_it = make_train_pipeline(cfg, trainer.device)
+        state, _, _ = trainer.train_iteration(state, next(data_it), 0)  # a first call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for epoch in range(8):
+            state, g_loss, d_loss = trainer.train_iteration(state, next(data_it), epoch)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    n_img = 8 * cfg.batch_size
+    print(f"train throughput at 512², batch 32, --remat_blocks, the 8-iteration mix fed by the port's pipeline, "
+          f"deterministic, 1 window: {n_img} images in {window:.3f} s = {n_img / window:.2f} images/s; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    check(math.isfinite(g_loss.item()) and math.isfinite(d_loss.item()) and peak < total,
+          f"512² batch-32 remat mix: losses finite, peak {peak:.2f} < {total:.2f} GiB")
+    del state, trainer, data_it
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2654,6 +2986,15 @@ def main() -> int:
         stamp("step 9c (1024² recipe)")
         run_converter(tmp)
         stamp("step 9d (Inception converter)")
+    check_remat_bitwise()  # step 10: the remat switches, the 512² recipe at batch 32
+    stamp("step 10a (remat on against off, bitwise)")
+    time_remat_512()
+    stamp("step 10b (remat's cost at the 512² recipe's batch of 8)")
+    with tempfile.TemporaryDirectory(prefix="lcgan_smoke_512_b32_") as tmp:
+        data = os.path.join(tmp, "data")
+        synthetic_jpeg_folder(data, 32, 512)
+        run_train_512_b32(data, os.path.join(tmp, "run"))
+    stamp("step 10c (512² recipe at batch 32 under remat)")
     worst.update(check_probe_kernels())  # the probes: their own entry points
     times.update(time_gather_probe(bw))
     launches.update(run_probe_entry_points())

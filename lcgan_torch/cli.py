@@ -102,14 +102,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0, help="global RNG seed")
     p.add_argument("--inception_weights", type=str, default="",
                    help="path to pytorch-fid pt_inception .pth for FID eval")
-    p.add_argument("--remat_blocks", default=True, action=argparse.BooleanOptionalAction,
-                   help="JAX package only: rematerialize G/D blocks in backward")
+    p.add_argument("--remat_blocks", default=False, action=argparse.BooleanOptionalAction,
+                   help="rematerialize each G and D block in the backward (activation checkpointing): "
+                        "less device memory for more device time, the same numbers. Off by default in "
+                        "the port (on in the JAX package, for a v5e's 16G HBM): every reference recipe "
+                        "fits an 80 GB card at its per-GPU batch without it; turn it on for larger "
+                        "batches, e.g. the 512² recipe at 32 on one GPU")
     p.add_argument("--remat_save_g_convs", default=True, action=argparse.BooleanOptionalAction,
-                   help="JAX package only: save G conv outputs under remat")
+                   help="under --remat_blocks, keep each G block's three modulated-conv outputs, so "
+                        "the recompute runs no conv")
     p.add_argument("--remat_save_d_convs", default=True, action=argparse.BooleanOptionalAction,
-                   help="JAX package only: save D conv outputs under remat")
+                   help="under --remat_blocks, keep each D block's two trunk-conv outputs")
     p.add_argument("--remat_save_max_res", type=int, default=1024,
-                   help="JAX package only: largest map the conv-save remat policies apply to")
+                   help="largest map (G: the block's output, D: its input) the conv-save policies apply to")
     p.add_argument("--view_batched_steps", default=False, action=argparse.BooleanOptionalAction,
                    help="fuse the even iteration's per-view G/D applications into batched ones")
     p.add_argument("--base_nf", type=int, default=None,
@@ -134,7 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="smallest map that auto routes to the Pallas kernels (the port: to the "
                         "small-map CUDA kernels where they apply, e.g. 8 for the 8²-64² blocks)")
     p.add_argument("--warp_adaptive_band", default=True, action=argparse.BooleanOptionalAction,
-                   help="JAX package only: flow-adaptive band of the Pallas warp")
+                   help="JAX package only: flow-adaptive band of the Pallas warp, which does not "
+                        "change its output; the port's kernels are exact on any grid and need no band")
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler Chrome trace of epochs start+12 to start+20 here")
 

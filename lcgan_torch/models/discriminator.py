@@ -16,6 +16,14 @@ flatten before the linears is already the reference's (C, H, W) order.
 
 freezeD (worker.py:127-131) freezes ``from_rgb`` and ``block_0`` …
 ``block_{n-1}``: see ``lcgan_torch.train.freeze``.
+
+``remat`` checkpoints every DiscriminatorBlock (``lcgan_torch.utils.remat``)
+as the JAX discriminator wraps them in ``nn.remat``
+(lcgan_tpu/models/discriminator.py:140-154); a block whose input map is at
+most ``remat_save_max_res`` keeps its ``conv0`` and ``conv1`` outputs
+("d_conv_out", never the skip conv's) when ``remat_save_d_convs`` is set.
+``from_rgb``, the epilogue (mbstd's per-view statistics) and the heads run
+outside any checkpoint.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from lcgan_torch.ops.equalized import EqualizedConv2d, EqualizedLinear
 from lcgan_torch.ops.filters import avg_pool_2x2, box_filter_3x3, leaky_relu
 from lcgan_torch.ops.mapping import ProjectionHead
 from lcgan_torch.ops.mbstd import minibatch_stddev
+from lcgan_torch.utils.remat import checkpoint_block
 
 SQRT2 = math.sqrt(2.0)
 SQRT_HALF = math.sqrt(0.5)
@@ -49,8 +58,8 @@ class DiscriminatorBlock(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, generator=generator)
         self.skip_layer = EqualizedConv2d(in_features, features, 1, no_bias=True, **kw)
-        self.conv0 = EqualizedConv2d(in_features, in_features, 3, **kw)
-        self.conv1 = EqualizedConv2d(in_features, features, 3, stride=2, **kw)
+        self.conv0 = EqualizedConv2d(in_features, in_features, 3, remat_save=True, **kw)
+        self.conv1 = EqualizedConv2d(in_features, features, 3, stride=2, remat_save=True, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skip = self.skip_layer(avg_pool_2x2(x)) * SQRT_HALF
@@ -97,10 +106,18 @@ class Discriminator(nn.Module):
         mbstd_group_size: int = 8,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
+        remat: bool = False,
+        remat_save_d_convs: bool = False,
+        remat_save_max_res: int = 1024,
     ):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.num_blocks = int(math.log2(img_resolution)) - 2
+        # per block under remat: keep conv0's and conv1's outputs (else plain remat)
+        self.block_saves = [
+            remat_save_d_convs and img_resolution // 2**i <= remat_save_max_res for i in range(self.num_blocks)
+        ]
         if base_nf is None:
             base_nf = 32 if img_resolution == 1024 else 64 if img_resolution == 512 else 128
         kw = dict(dtype=dtype, generator=generator)
@@ -125,8 +142,9 @@ class Discriminator(nn.Module):
         mbstd sees it, everything else is per-sample."""
         x = image.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = leaky_relu(self.from_rgb(x), 0.2)
-        for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x)
+        for i, save in enumerate(self.block_saves):
+            block = getattr(self, f"block_{i}")
+            x = checkpoint_block(block, x, save_convs=save) if self.remat else block(x)
         logit = self.logit_mapper(self.discriminator_epilogue(x, num_views))
         if not get_embedding_features:
             return logit, None, None
@@ -154,4 +172,7 @@ def build_discriminator(cfg: Config, generator: Optional[torch.Generator] = None
         mbstd_group_size=cfg.mbstd_group_size,
         dtype=cfg.dtype,
         generator=generator,
+        remat=cfg.remat_blocks,
+        remat_save_d_convs=cfg.remat_save_d_convs,
+        remat_save_max_res=cfg.remat_save_max_res,
     )

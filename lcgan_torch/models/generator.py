@@ -16,6 +16,17 @@ where the JAX generator would take its small-map Pallas kernels
 (``warp_impl``, ``warp_pallas_min_res``; ``ops.warp.small_route``).
 ``warp_impl="none"`` skips the warp, as the JAX block does: the block
 returns its features unwarped and launches no warp kernel.
+
+``remat`` checkpoints every SynthesisBlock and the ToRGBBlock
+(``lcgan_torch.utils.remat``), as the JAX generator wraps them in
+``nn.remat`` (lcgan_tpu/models/generator.py:270-293); a block whose output
+map is at most ``remat_save_max_res`` keeps its three modulated convs' raw
+outputs ("g_conv_out") when ``remat_save_g_convs`` is set, and ToRGB never
+does. The mapping nets, the w-avg update and the const run outside any
+checkpoint. The modules are called through the checkpoint, not wrapped, so
+the ``state_dict`` keys are the same either way. The recompute launches the
+block's forward warp kernel again: ``BicubicWarp`` keeps its inputs, not its
+output.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from lcgan_torch.ops.grid_sample import identity_like_coordinates
 from lcgan_torch.ops.mapping import MappingNetwork
 from lcgan_torch.ops.modulated import SynthesisLayer
 from lcgan_torch.ops.warp import grid_sample_bicubic, small_route
+from lcgan_torch.utils.remat import checkpoint_block
 
 SQRT2 = math.sqrt(2.0)
 SQRT_HALF = math.sqrt(0.5)
@@ -64,12 +76,14 @@ class SynthesisBlock(nn.Module):
         self.small_warp = small_route(warp_impl, warp_pallas_min_res, resolution, resolution, features, max_flow_scale)
         kw = dict(dtype=dtype, generator=generator)
         self.skip_layer = EqualizedConv2d(in_features, features, 1, no_bias=True, **kw)
-        self.flow_layer = SynthesisLayer(in_features, 2, g_latent_dim, up=2, **kw)
+        # the three modulated convs' raw outputs are the remat save policy's "g_conv_out"
+        saved = dict(kw, remat_save=True)
+        self.flow_layer = SynthesisLayer(in_features, 2, g_latent_dim, up=2, **saved)
         self.modulated_conv0 = SynthesisLayer(
-            in_features, features, a_latent_dim, up=2, use_noise=use_noise, resolution=resolution, **kw
+            in_features, features, a_latent_dim, up=2, use_noise=use_noise, resolution=resolution, **saved
         )
         self.modulated_conv1 = SynthesisLayer(
-            features, features, a_latent_dim, up=1, use_noise=use_noise, resolution=resolution, **kw
+            features, features, a_latent_dim, up=1, use_noise=use_noise, resolution=resolution, **saved
         )
 
     def forward(self, x: torch.Tensor, g_latent: torch.Tensor, a_latents: torch.Tensor) -> torch.Tensor:
@@ -145,9 +159,13 @@ class Generator(nn.Module):
         generator: Optional[torch.Generator] = None,
         warp_impl: str = "auto",
         warp_pallas_min_res: int = 128,
+        remat: bool = False,
+        remat_save_g_convs: bool = False,
+        remat_save_max_res: int = 1024,
     ):
         super().__init__()
         self.w_avg_beta = w_avg_beta
+        self.remat = remat
         self.dtype = dtype
         self.num_blocks = int(math.log2(img_resolution)) - 2
         if base_nf is None:
@@ -162,6 +180,8 @@ class Generator(nn.Module):
         self.const = nn.Parameter(torch.randn((max_nf, 4, 4), generator=generator))  # CHW (cnn.py:76)
 
         in_features = max_nf
+        # per block under remat: keep the modulated convs' raw outputs (else plain remat)
+        self.block_saves = [remat_save_g_convs and 8 * 2**i <= remat_save_max_res for i in range(self.num_blocks)]
         for i in range(self.num_blocks):
             features = min(base_nf * 2 ** (self.num_blocks - i - 1), max_nf)
             block = SynthesisBlock(
@@ -212,9 +232,11 @@ class Generator(nn.Module):
         x = self.const.to(self.dtype)[None].expand(batch, -1, -1, -1)
         x = x.contiguous(memory_format=torch.channels_last)
         a_pair = torch.stack([appearance_code, appearance_code], dim=1)  # (B, 2, a_dim)
-        for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x, geometry_code, a_pair)
-        return self.rgb_layer(x, a_pair)
+        for i, save in enumerate(self.block_saves):
+            block = getattr(self, f"block_{i}")
+            args = (x, geometry_code, a_pair)
+            x = checkpoint_block(block, *args, save_convs=save) if self.remat else block(*args)
+        return checkpoint_block(self.rgb_layer, x, a_pair) if self.remat else self.rgb_layer(x, a_pair)
 
 
 def build_generator(cfg: Config, generator: Optional[torch.Generator] = None) -> Generator:
@@ -233,4 +255,7 @@ def build_generator(cfg: Config, generator: Optional[torch.Generator] = None) ->
         generator=generator,
         warp_impl=cfg.warp_impl,
         warp_pallas_min_res=cfg.warp_pallas_min_res,
+        remat=cfg.remat_blocks,
+        remat_save_g_convs=cfg.remat_save_g_convs,
+        remat_save_max_res=cfg.remat_save_max_res,
     )

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lcgan_torch.utils.remat import saved_conv
+
 
 def equalized_scale(fan_in: int, lr_mul: float = 1.0) -> float:
     """He-style runtime scale: 1/sqrt(fan_in) * lr_mul (custom_layers.py:10)."""
@@ -65,6 +67,14 @@ class EqualizedConv2d(nn.Module):
     The JAX package's packed k=3 route is the same conv reordered for the
     TPU's matrix unit (used only at 1024² with Co <= 32); the port has no
     counterpart.
+
+    ``remat_save`` marks the conv's output for a remat block's save policy
+    (``lcgan_torch.utils.remat``): set on the discriminator blocks' ``conv0``
+    and ``conv1``, the JAX package's "d_conv_out"
+    (lcgan_tpu/models/discriminator.py:57-71). The JAX package names the
+    output after the bias; the port keeps the
+    conv's own output and recomputes the bias add, an elementwise op, so
+    the recompute runs no convolution and keeps as many bytes.
     """
 
     def __init__(
@@ -77,10 +87,12 @@ class EqualizedConv2d(nn.Module):
         lr_mul: float = 1.0,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
+        remat_save: bool = False,
     ):
         super().__init__()
         k = kernel_size
         self.stride = stride
+        self.remat_save = remat_save
         self.lr_mul = lr_mul
         self.dtype = dtype
         self.scale = equalized_scale(in_features * k * k, lr_mul)
@@ -89,7 +101,8 @@ class EqualizedConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
-        y = F.conv2d(x.to(self.dtype), (self.weight * self.scale).to(self.dtype), stride=self.stride, padding=k // 2)
+        y = saved_conv(self.remat_save, F.conv2d, x.to(self.dtype), (self.weight * self.scale).to(self.dtype),
+                       stride=self.stride, padding=k // 2)
         if self.bias is not None:
             y = y + (self.bias * self.lr_mul)[None, :, None, None]
         return y.to(self.dtype)

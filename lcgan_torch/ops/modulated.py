@@ -13,6 +13,11 @@ which equals the reference's per-sample grouped conv (custom_layers.py:47-86).
 (custom_layers.py:74-80). Its weight is stored in the conv-transpose layout
 (I, O, kh, kw) and is NOT flipped: the JAX package flips only because it
 writes the transpose as an lhs-dilated direct conv.
+
+``remat_save`` marks the RAW conv output, before the demod scale and the
+bias, as the JAX package's ``checkpoint_name(..., "g_conv_out")`` does
+(lcgan_tpu/ops/modulated.py:101-106,155): kept under a remat block's save
+policy (``lcgan_torch.utils.remat``), a plain call otherwise.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lcgan_torch.ops.equalized import EqualizedLinear, equalized_param, equalized_scale
+from lcgan_torch.utils.remat import saved_conv
 
 
 def modulated_conv2d(
@@ -35,6 +41,7 @@ def modulated_conv2d(
     up: int = 1,
     eps: float = 1e-8,
     dtype: torch.dtype = torch.float32,
+    remat_save: bool = False,
 ) -> torch.Tensor:
     """Functional mod/demod conv. See the module docstring for the form."""
     k = weight.shape[-1]
@@ -48,10 +55,11 @@ def modulated_conv2d(
     demod = torch.rsqrt(sigma + eps)  # (B, O)
 
     xs = x.to(dtype) * styles.to(dtype)[:, :, None, None]
+    w = weight.to(dtype)
     if up == 1:
-        y = F.conv2d(xs, weight.to(dtype), padding=pad)
+        y = saved_conv(remat_save, F.conv2d, xs, w, padding=pad)
     elif up == 2:
-        y = F.conv_transpose2d(xs, weight.to(dtype), stride=2, padding=pad, output_padding=1)
+        y = saved_conv(remat_save, F.conv_transpose2d, xs, w, stride=2, padding=pad, output_padding=1)
     else:
         raise ValueError(f"up must be 1 or 2, got {up}")
     # epilogue in the compute dtype
@@ -72,10 +80,12 @@ class ModulatedConv2d(nn.Module):
         lr_mul: float = 1.0,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
+        remat_save: bool = False,
     ):
         super().__init__()
         k = kernel_size
         self.up, self.eps, self.lr_mul, self.dtype = up, eps, lr_mul, dtype
+        self.remat_save = remat_save
         self.scale = equalized_scale(in_features * k * k, lr_mul)
         shape = (in_features, features, k, k) if up == 2 else (features, in_features, k, k)
         self.weight = equalized_param(shape, lr_mul, generator)
@@ -90,6 +100,7 @@ class ModulatedConv2d(nn.Module):
             up=self.up,
             eps=self.eps,
             dtype=self.dtype,
+            remat_save=self.remat_save,
         )
 
 
@@ -113,12 +124,13 @@ class SynthesisLayer(nn.Module):
         resolution: Optional[int] = None,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
+        remat_save: bool = False,
     ):
         super().__init__()
         # style = EqualizedLinear(latent -> in_features, bias init 1.0)
         self.linear = EqualizedLinear(latent_dim, in_features, bias_init=1.0, generator=generator)
         self.modulated_conv = ModulatedConv2d(
-            in_features, features, kernel_size, up=up, dtype=dtype, generator=generator
+            in_features, features, kernel_size, up=up, dtype=dtype, generator=generator, remat_save=remat_save
         )
         self.use_noise = use_noise
         if use_noise:
