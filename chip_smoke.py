@@ -1699,39 +1699,30 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-class AllReduceTimer:
-    """Wraps lcgan_torch.parallel.mean_all_reduce (the train step and the
-    generator look it up on the module at each call): counts the calls made
-    under a process group and their host time, and records the backend."""
+@contextlib.contextmanager
+def all_reduces():
+    """The program's own tracing (``lcgan_torch.utils.trace``) on for the
+    block; yields a dict that it fills on exit with the all-reduce calls
+    and bytes the program counted under a process group and the host
+    seconds of the train steps' ``*.all_reduce`` spans."""
+    from lcgan_torch.utils import trace
 
-    def __init__(self):
-        from lcgan_torch import parallel
-
-        self.parallel, self.inner = parallel, parallel.mean_all_reduce
-        self.calls, self.seconds, self.backend, self.world = 0, 0.0, None, None
-
-    def __enter__(self):
-        def timed(tensors):
-            t0 = time.perf_counter()
-            self.inner(tensors)
-            if self.parallel.initialized():
-                import torch.distributed as dist
-
-                self.calls += 1
-                self.seconds += time.perf_counter() - t0
-                self.backend, self.world = str(dist.get_backend()), dist.get_world_size()
-
-        self.parallel.mean_all_reduce = timed
-        return self
-
-    def __exit__(self, *exc):
-        self.parallel.mean_all_reduce = self.inner
+    trace.enable()
+    out: dict = {}
+    try:
+        yield out
+    finally:
+        trace.disable()
+        spans, counters = trace.take()
+        out.update(calls=counters.get("all_reduce.calls", 0), bytes=counters.get("all_reduce.bytes", 0),
+                   seconds=sum(sp.end_ns - sp.start_ns for sp in spans if sp.name.endswith(".all_reduce")) / 1e9)
 
 
 def cli_worker(out: str, argv) -> int:
     """A fresh process's ``lcgan_torch.cli.main(argv)`` (plain, or as a rank
     under torchrun), its kernel launches counted from 0 and its all-reduce
-    calls timed; rank 0 writes them to ``out`` as JSON."""
+    calls counted and timed by the program (it counts only under a process
+    group); rank 0 writes them to ``out`` as JSON."""
     import torch
 
     from lcgan_torch import parallel
@@ -1740,14 +1731,14 @@ def cli_worker(out: str, argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     reset_launches()
     t0 = time.perf_counter()
-    with AllReduceTimer() as timer:
+    with all_reduces() as reduced:
         run_cli(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     if int(os.environ.get("RANK", 0)) == 0:
         with open(out, "w") as f:
-            json.dump(dict(launches=read_launches(), seconds=seconds, allreduce_calls=timer.calls,
-                           allreduce_s=timer.seconds, backend=timer.backend, world=timer.world,
+            json.dump(dict(launches=read_launches(), seconds=seconds, allreduce_calls=reduced["calls"],
+                           allreduce_bytes=reduced["bytes"], allreduce_s=reduced["seconds"],
                            group_left=parallel.initialized()), f)
     return 0
 
@@ -1809,10 +1800,10 @@ def run_dp_train(data: str, root: str) -> str:
         else:
             reset_launches()
             t0 = time.perf_counter()
-            with AllReduceTimer() as timer:
+            with all_reduces() as reduced:
                 run_cli(argv)
             torch.cuda.synchronize()
-            res = dict(launches=read_launches(), seconds=time.perf_counter() - t0, allreduce_calls=timer.calls)
+            res = dict(launches=read_launches(), seconds=time.perf_counter() - t0, allreduce_calls=reduced["calls"])
         runs[torchrun] = (run, res)
         what = "torchrun --nproc_per_node=1" if torchrun else "plain"
         print(f"DP world size 1: {what} train phase, 256², epochs 0-3, in {res['seconds']:.3f} s "
@@ -1821,11 +1812,13 @@ def run_dp_train(data: str, root: str) -> str:
             check(n == EXPECT_256[name], f"{name} launches on the {what} 256² train phase, epochs 0-3: {n} "
                                          f"(expect {EXPECT_256[name]})")
     (plain, p), (dp, d) = runs[False], runs[True]
-    check(d["backend"] == "nccl" and d["world"] == 1 and not d["group_left"] and p["allreduce_calls"] == 0,
-          f"torchrun run: process group {d['backend']} at world size {d['world']}, {d['allreduce_calls']} all-reduce "
-          f"calls ({d['allreduce_calls'] / 4:.1f} an iteration, {d['allreduce_s'] / 4 * 1e6:.1f} host µs an iteration, "
-          f"the communicator's setup in the first), destroyed at the end of the phase: {not d['group_left']}; "
-          f"the plain run made {p['allreduce_calls']}")
+    check(d["allreduce_calls"] == 4 * 5 and d["allreduce_bytes"] > 0 and not d["group_left"]
+          and p["allreduce_calls"] == 0,
+          f"torchrun run: {d['allreduce_calls']} all-reduce calls under its process group (expect {4 * 5}: G, D and "
+          f"the w-avg of each training-mode G forward, 4 iterations), {d['allreduce_bytes'] / 4 / 2**20:.2f} MiB an "
+          f"iteration, {d['allreduce_s'] / 4 * 1e6:.1f} host µs an iteration in the steps' all_reduce spans (the "
+          f"communicator's setup in the first); the group destroyed at the end of the phase: {not d['group_left']}; "
+          f"the plain run made {p['allreduce_calls']} (the group's backend is read in the 256² mix below)")
     files = {f: (os.path.exists(os.path.join(plain, f)), os.path.exists(os.path.join(dp, f)))
              for f in ("args.txt", "log.txt", "epoch.txt", "model/state.pt")}
     check(all(a and b for a, b in files.values()), f"torchrun and plain runs write the same files {files}")
@@ -1860,8 +1853,10 @@ def torchrun_env():
 def compare_dp_mix_256() -> None:
     """Per layer: windows of the 8-iteration mix at 256² on one synthetic
     batch without and with a one-rank NCCL group, in turns (P, G, G, P), in
-    one process; images/s each and the host µs of the all-reduce calls."""
+    one process, each with the program's tracing on; images/s each and the
+    host µs of the steps' all-reduce spans."""
     import torch
+    import torch.distributed as dist
 
     from lcgan_torch import parallel
     from lcgan_torch.config import Config
@@ -1882,23 +1877,31 @@ def compare_dp_mix_256() -> None:
         return time.perf_counter() - t0
 
     window()  # first calls
-    windows = dict(plain=[window()], group=[])
+    windows, plain = dict(plain=[], group=[]), []
+    with all_reduces() as reduced:  # every window with the program's tracing on, as the group's
+        windows["plain"].append(window())
+    plain.append(reduced)
     with torchrun_env(), parallel.process_group("on", "cuda"):
         check(parallel.initialized() and parallel.world_size() == 1, "one-rank NCCL group in this process")
         state, _, _ = trainer.train_iteration(state, batch, 0)  # the communicator's first call
-        with AllReduceTimer() as timer:
+        backend = str(dist.get_backend())
+        with all_reduces() as reduced:
             windows["group"] += [window(), window()]
-    windows["plain"].append(window())
+    with all_reduces() as after:
+        windows["plain"].append(window())
+    plain.append(after)
     for name, ws in windows.items():
         n_img = len(ws) * 8 * cfg.batch_size
         print(f"train throughput at 256², 8-iteration mix, {'with a one-rank NCCL group' if name == 'group' else 'no process group'}, "
               f"{len(ws)} windows in turns (P, G, G, P): {n_img} images in {sum(ws):.3f} s = {n_img / sum(ws):.2f} images/s "
               f"(windows {', '.join(f'{w * 1e3:.1f}' for w in ws)} ms)", flush=True)
     iters = 8 * len(windows["group"])
-    check(timer.calls == iters * 5 and timer.backend == "nccl",
-          f"all-reduce calls in the group's windows: {timer.calls} (expect {iters * 5}: G, D and the w-avg of each "
-          f"training-mode G forward), {timer.backend}; host {timer.seconds / iters * 1e6:.1f} µs an iteration, "
-          f"{timer.seconds / max(timer.calls, 1) * 1e6:.1f} µs a call")
+    check([r["calls"] for r in plain] == [0, 0], f"all-reduce calls in the plain windows: {[r['calls'] for r in plain]}")
+    check(reduced["calls"] == iters * 5 and backend == "nccl",
+          f"all-reduce calls in the group's windows: {reduced['calls']} (expect {iters * 5}: G, D and the w-avg of each "
+          f"training-mode G forward), {reduced['bytes'] / iters / 2**20:.2f} MiB an iteration, {backend}; host "
+          f"{reduced['seconds'] / iters * 1e6:.1f} µs an iteration in the steps' two all_reduce spans, "
+          f"{reduced['seconds'] / (2 * iters) * 1e6:.1f} µs a span")
     del state, trainer, batch
     torch.cuda.empty_cache()
 

@@ -34,6 +34,7 @@ from PIL import Image
 import torch
 
 from lcgan_torch.data import augment
+from lcgan_torch.utils import trace
 
 _IMG_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".ppm", ".tif", ".tiff"}
 
@@ -208,9 +209,11 @@ class TrainInputPipeline:
                     f"per-host batch {self.host_batch} exceeds shard size {len(idxs)}"
                 )
             for b in range(nb):
-                yield self._make_batch(
-                    idxs[b * self.host_batch : (b + 1) * self.host_batch], self.epoch
-                )
+                with trace.span("data.batch", device=False):  # on the thread that consumes this iterator
+                    batch = self._make_batch(
+                        idxs[b * self.host_batch : (b + 1) * self.host_batch], self.epoch
+                    )
+                yield batch
             self.epoch += 1
 
     def __iter__(self):
@@ -244,6 +247,9 @@ class Prefetcher:
         return self
 
     def __next__(self):
+        if trace.recording():
+            trace.count("data.get")
+            trace.count("data.ready", int(not self.q.empty()))  # a batch was waiting: the pipeline kept ahead
         item = self.q.get()
         if item is self._done:
             if self._error is not None:

@@ -20,12 +20,18 @@ import torch
 
 from lcgan_torch import parallel
 from lcgan_torch.config import Config
+from lcgan_torch.utils import trace
 from lcgan_torch.utils.media import make_grid, resize_frame, save_image_grid, save_video, to_uint8
 
 
 def to_unit(img: torch.Tensor) -> np.ndarray:
-    """[-1,1] NCHW model output -> float [0,1] NHWC numpy (worker.py:435)."""
-    return ((img.float() + 1.0) * 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1).cpu().numpy()
+    """[-1,1] NCHW model output -> float [0,1] NHWC numpy (worker.py:435).
+    The copy to the host waits for the device: the span ``to_unit.copy``."""
+    with trace.span("to_unit"):
+        unit = ((img.float() + 1.0) * 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+        with trace.span("to_unit.copy"):
+            unit = unit.cpu()
+        return unit.numpy()
 
 
 def local_batch(cfg: Config) -> int:

@@ -15,6 +15,8 @@ from typing import Callable, Tuple
 import torch
 import torch.nn.functional as F
 
+from lcgan_torch.utils import trace
+
 
 def contrastive_loss(anchor: torch.Tensor, p_sample: torch.Tensor, n_sample: torch.Tensor, tau: float) -> torch.Tensor:
     """Pairwise InfoNCE (loss.py:9-15):
@@ -47,7 +49,8 @@ def r1_penalty_with_logits(
     if not images.requires_grad:
         images = images.detach().requires_grad_(True)
     logits = logit_fn(images)
-    (grads,) = torch.autograd.grad(logits.float().sum(), images, create_graph=True)
+    with trace.span("r1.grad"):
+        (grads,) = torch.autograd.grad(logits.float().sum(), images, create_graph=True)
     grads = grads.float()
     r1 = 0.5 * grads.square().reshape(images.shape[0], -1).sum(dim=1).mean()
     return logits, r1

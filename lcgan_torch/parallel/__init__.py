@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from lcgan_torch.utils import trace
+
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
@@ -106,13 +108,17 @@ def mean_all_reduce(tensors: Sequence[torch.Tensor]) -> None:
     """Replace each tensor by its mean over the ranks, in place: the list
     flattened into one buffer, one ``all_reduce(SUM)``, divided by the world
     size, copied back. The tensors share one dtype and device. At world size
-    1 the values come back bit for bit."""
+    1 the values come back bit for bit. While tracing is on
+    (``utils.trace``), each call under a group adds to the counters
+    ``all_reduce.calls`` and ``all_reduce.bytes``."""
     if not initialized() or not tensors:
         return
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1:
         raise TypeError(f"mean_all_reduce takes one dtype, got {sorted(map(str, dtypes))}")
     buf = torch.cat([t.detach().reshape(-1) for t in tensors])
+    trace.count("all_reduce.calls")
+    trace.count("all_reduce.bytes", buf.numel() * buf.element_size())
     dist.all_reduce(buf, op=dist.ReduceOp.SUM)
     buf.div_(dist.get_world_size())
     parts = buf.split([t.numel() for t in tensors])

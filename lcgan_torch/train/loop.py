@@ -16,8 +16,13 @@ loader.py:64-66), ``samples/``, ``model/`` (here ``model/state.pt`` and
 ``--profile_dir`` traces the JAX package's window (lcgan_tpu/train/loop.py:85-99),
 counted from the start epoch: ``torch.profiler`` (the CPU and, on the card,
 CUDA activity) from epoch start+12 to min(start+20, ``--epoch``), each
-iteration under a ``train_iteration epoch N`` range, the device
-synchronized before it stops. Each rank writes its Chrome trace as
+iteration under a ``train_iteration epoch N`` range with the step's
+phases (``utils.trace``'s spans: ``noise``, ``g_step.forward``,
+``g_step.backward``, ``g_step.all_reduce``, ``g_step.adam``, ``ema``,
+``d_step.fake``, ``d_step.forward`` with ``r1.grad`` in an R1 iteration,
+``d_step.backward``, ``d_step.all_reduce``, ``d_step.adam``, and
+``remat.recompute`` under ``--remat_blocks``) as ranges inside it, the
+device synchronized before it stops. Each rank writes its Chrome trace as
 ``<profile_dir>/trace_epochs_<first>-<last>_rank<r>.json``. A run that ends
 before the window traces nothing.
 """
@@ -38,6 +43,7 @@ from lcgan_torch.gen.artifacts import demo_generation, fake_image_generation, mo
 from lcgan_torch.models.generator import Generator, build_generator
 from lcgan_torch.train.state import TrainState
 from lcgan_torch.train.steps import Trainer
+from lcgan_torch.utils import trace
 from lcgan_torch.utils.checkpoint import (
     load_state,
     read_epoch_file,
@@ -142,6 +148,7 @@ class EpochProfiler:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=activities)
             self.prof.start()
+            trace.enable(annotate=True)
         if self.prof is None:
             yield
             return
@@ -154,6 +161,8 @@ class EpochProfiler:
             os.makedirs(self.dir, exist_ok=True)
             self.prof.export_chrome_trace(
                 os.path.join(self.dir, f"trace_epochs_{self.first}-{self.last}_rank{parallel.rank()}.json"))
+            trace.disable()
+            trace.take()  # the phases are in the Chrome trace as ranges
             self.prof, self.dir = None, ""
 
 

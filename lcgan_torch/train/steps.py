@@ -51,6 +51,7 @@ from lcgan_torch.losses import bce_logits, contrastive_loss, r1_penalty_with_log
 from lcgan_torch.train.ema import ema_update
 from lcgan_torch.train.freeze import freeze_mask
 from lcgan_torch.train.state import TrainState, create_train_state
+from lcgan_torch.utils import trace
 
 Noise = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -96,50 +97,83 @@ class Trainer:
         g_net.train()
         d_net.train()
         z_g1, z_g2, z_r1, z_r2, z_d1, z_d2 = noise
-        batched = cfg.view_batched_steps
-        b = z_g1.shape[0]
 
         # ---------------- G step (worker.py:179-214) ----------------
-        if even:
-            if batched:  # the three views through G and D once each, at 3B
-                views = g_net(torch.cat([z_g1, z_r1, z_g1]), torch.cat([z_g2, z_g2, z_r2]), num_views=3)
-                logits, geo_e, app_e = d_net(views, True, num_views=3)
-                logit = logits[:b]
-                # anchor → (feat, feat), res_geo → (geo_pos, app_neg),
-                # res_app → (geo_neg, app_pos): the unbatched triple's layout
-                geo_feat, geo_pos, geo_neg = geo_e.split(b)
-                app_feat, app_neg, app_pos = app_e.split(b)
-            else:
-                anchor = g_net(z_g1, z_g2)
-                res_geo = g_net(z_r1, z_g2)
-                res_app = g_net(z_g1, z_r2)
-                logit, geo_feat, app_feat = d_net(anchor, True)
-                _, geo_pos, app_neg = d_net(res_geo, True)
-                _, geo_neg, app_pos = d_net(res_app, True)
-            adv = bce_logits(logit, 1.0)
-            aux = (
-                contrastive_loss(geo_feat, geo_pos, geo_neg, cfg.tau)
-                + contrastive_loss(app_feat, app_pos, app_neg, cfg.tau)
-            ) * cfg.l_aux
-            sp = sparsity_loss(
-                g_net.geometry_mapping.diagonal_params, g_net.appearance_mapping.diagonal_params
-            ) * cfg.l_s
-            g_loss = adv + aux + sp
-        else:
-            g_loss = bce_logits(d_net(g_net(z_g1, z_g2), False)[0], 1.0)
+        with trace.span("g_step.forward"):
+            g_loss = self._g_loss(g_net, d_net, z_g1, z_g2, z_r1, z_r2, even)
         g_params = list(g_net.parameters())
-        # grads of G's leaves only: the loss ran D with grads, D gets none
-        g_grads = _grads(g_loss, g_params)
-        g_loss = g_loss.detach()
-        parallel.mean_all_reduce(g_grads + [g_loss])  # pmean (steps.py:184-186)
-        state.g_opt.step(g_params, g_grads)
+        with trace.span("g_step.backward"):  # grads of G's leaves only: the loss ran D with grads, D gets none
+            g_grads = _grads(g_loss, g_params)
+            g_loss = g_loss.detach()  # the graph goes with the loss: freeing it is the backward's host time
+        with trace.span("g_step.all_reduce"):
+            parallel.mean_all_reduce(g_grads + [g_loss])  # pmean (steps.py:184-186)
+        with trace.span("g_step.adam"):
+            state.g_opt.step(g_params, g_grads)
 
         # ---------------- EMA (loader.py:48), before the D step's G forward ----------------
-        ema_update(g_net, state.ema, state.step, cfg.g_ema_decay, cfg.g_ema_start)
+        with trace.span("ema"):
+            ema_update(g_net, state.ema, state.step, cfg.g_ema_decay, cfg.g_ema_start)
 
         # ---------------- D step (worker.py:137-177) ----------------
-        with torch.no_grad():  # training mode: the w averages update again
+        with trace.span("d_step.fake"), torch.no_grad():  # training mode: the w averages update again
             fake = g_net(z_d1, z_d2)
+        with trace.span("d_step.forward"):
+            d_loss = self._d_loss(d_net, fake, batch, even, with_r1)
+        d_params = list(d_net.parameters())
+        mask = freeze_mask(d_net, cfg.freezeD_layer) if frozen else [False] * len(d_params)
+        live = [p for p, f in zip(d_params, mask) if not f]
+        with trace.span("d_step.backward"):
+            live_grads = _grads(d_loss, live)
+            d_loss = d_loss.detach()
+        with trace.span("d_step.all_reduce"):
+            parallel.mean_all_reduce(live_grads + [d_loss])  # pmean (steps.py:274-276)
+        with trace.span("d_step.adam"):
+            live_grads = iter(live_grads)
+            # frozen leaves: zero gradients (v decays) and no update
+            d_grads = [torch.zeros_like(p) if f else next(live_grads) for p, f in zip(d_params, mask)]
+            state.d_opt.step(d_params, d_grads, mask)
+
+        state.step += 1
+        return state, g_loss, d_loss
+
+    def _g_loss(self, g_net, d_net, z_g1, z_g2, z_r1, z_r2, even: bool) -> torch.Tensor:
+        """The G step's loss: G's and D's forwards and the losses."""
+        cfg = self.cfg
+        if not even:
+            return bce_logits(d_net(g_net(z_g1, z_g2), False)[0], 1.0)
+        b = z_g1.shape[0]
+        if cfg.view_batched_steps:  # the three views through G and D once each, at 3B
+            views = g_net(torch.cat([z_g1, z_r1, z_g1]), torch.cat([z_g2, z_g2, z_r2]), num_views=3)
+            logits, geo_e, app_e = d_net(views, True, num_views=3)
+            logit = logits[:b]
+            # anchor → (feat, feat), res_geo → (geo_pos, app_neg),
+            # res_app → (geo_neg, app_pos): the unbatched triple's layout
+            geo_feat, geo_pos, geo_neg = geo_e.split(b)
+            app_feat, app_neg, app_pos = app_e.split(b)
+        else:
+            anchor = g_net(z_g1, z_g2)
+            res_geo = g_net(z_r1, z_g2)
+            res_app = g_net(z_g1, z_r2)
+            logit, geo_feat, app_feat = d_net(anchor, True)
+            _, geo_pos, app_neg = d_net(res_geo, True)
+            _, geo_neg, app_pos = d_net(res_app, True)
+        adv = bce_logits(logit, 1.0)
+        aux = (
+            contrastive_loss(geo_feat, geo_pos, geo_neg, cfg.tau)
+            + contrastive_loss(app_feat, app_pos, app_neg, cfg.tau)
+        ) * cfg.l_aux
+        sp = sparsity_loss(
+            g_net.geometry_mapping.diagonal_params, g_net.appearance_mapping.diagonal_params
+        ) * cfg.l_s
+        return adv + aux + sp
+
+    def _d_loss(self, d_net, fake: torch.Tensor, batch: Dict[str, torch.Tensor], even: bool,
+                with_r1: bool) -> torch.Tensor:
+        """The D step's loss on the fakes and the batch: D's forwards (R1's
+        gradient among them) and the losses."""
+        cfg = self.cfg
+        batched = cfg.view_batched_steps
+        b = fake.shape[0]
         image = batch["image"]
         if even and batched:  # fake, real and the two changes through D once, at 4B
             stacked = torch.cat([fake, image, batch["geometry_change"], batch["appearance_change"]])
@@ -152,41 +186,25 @@ class Trainer:
                 contrastive_loss(geo_feat, geo_pos, geo_neg, cfg.tau)
                 + contrastive_loss(app_feat, app_pos, app_neg, cfg.tau)
             ) * cfg.l_aux
-            d_loss = adv + aux
-        elif batched and not with_r1:  # fake and real through D once, at 2B
+            return adv + aux
+        if batched and not with_r1:  # fake and real through D once, at 2B
             logits = d_net(torch.cat([fake, image]), False, num_views=2)[0]
-            d_loss = bce_logits(logits[:b], 0.0) + bce_logits(logits[b:], 1.0)
-        else:
-            fake_loss = bce_logits(d_net(fake, False)[0], 0.0)
-            if even:
-                real_logit, geo_feat, app_feat = d_net(image, True)
-                _, geo_pos, app_neg = d_net(batch["geometry_change"], True)
-                _, geo_neg, app_pos = d_net(batch["appearance_change"], True)
-                adv = bce_logits(real_logit, 1.0) + fake_loss
-                aux = (
-                    contrastive_loss(geo_feat, geo_pos, geo_neg, cfg.tau)
-                    + contrastive_loss(app_feat, app_pos, app_neg, cfg.tau)
-                ) * cfg.l_aux
-                d_loss = adv + aux
-            elif with_r1:
-                real_logit, r1 = r1_penalty_with_logits(lambda img: d_net(img, False)[0], image)
-                d_loss = bce_logits(real_logit, 1.0) + fake_loss + r1 * cfg.l_r1
-            else:
-                d_loss = bce_logits(d_net(image, False)[0], 1.0) + fake_loss
-
-        d_params = list(d_net.parameters())
-        mask = freeze_mask(d_net, cfg.freezeD_layer) if frozen else [False] * len(d_params)
-        live = [p for p, f in zip(d_params, mask) if not f]
-        live_grads = _grads(d_loss, live)
-        d_loss = d_loss.detach()
-        parallel.mean_all_reduce(live_grads + [d_loss])  # pmean (steps.py:274-276)
-        live_grads = iter(live_grads)
-        # frozen leaves: zero gradients (v decays) and no update
-        d_grads = [torch.zeros_like(p) if f else next(live_grads) for p, f in zip(d_params, mask)]
-        state.d_opt.step(d_params, d_grads, mask)
-
-        state.step += 1
-        return state, g_loss, d_loss
+            return bce_logits(logits[:b], 0.0) + bce_logits(logits[b:], 1.0)
+        fake_loss = bce_logits(d_net(fake, False)[0], 0.0)
+        if even:
+            real_logit, geo_feat, app_feat = d_net(image, True)
+            _, geo_pos, app_neg = d_net(batch["geometry_change"], True)
+            _, geo_neg, app_pos = d_net(batch["appearance_change"], True)
+            adv = bce_logits(real_logit, 1.0) + fake_loss
+            aux = (
+                contrastive_loss(geo_feat, geo_pos, geo_neg, cfg.tau)
+                + contrastive_loss(app_feat, app_pos, app_neg, cfg.tau)
+            ) * cfg.l_aux
+            return adv + aux
+        if with_r1:
+            real_logit, r1 = r1_penalty_with_logits(lambda img: d_net(img, False)[0], image)
+            return bce_logits(real_logit, 1.0) + fake_loss + r1 * cfg.l_r1
+        return bce_logits(d_net(image, False)[0], 1.0) + fake_loss
 
     # ------------------------------------------------------------------
     def step_variant(self, epoch: int):
@@ -203,5 +221,6 @@ class Trainer:
         """Draw the iteration's noise and run this epoch's variant.
         Returns (state, g_loss, d_loss)."""
         batch = {k: v.to(self.device) for k, v in batch.items()}
-        noise = self.draw_noise(state, batch["image"].shape[0])
+        with trace.span("noise"):
+            noise = self.draw_noise(state, batch["image"].shape[0])
         return self.step_variant(epoch)(state, batch, noise)

@@ -30,12 +30,15 @@ a recomputed graph is differentiable again as the first one was.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Callable, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
+
+from lcgan_torch.utils import trace
 
 _CONVOLUTION = torch.ops.aten.convolution.default
 _active = threading.local()  # .saves: the _Saves of the region running or recomputing on this thread
@@ -65,6 +68,25 @@ class _Region:
 
     def __exit__(self, *exc):
         _active.saves = self.outer
+
+
+class _Recompute:
+    """The ``remat.recompute`` span around each recompute of a checkpointed
+    call, joined with the call's own recompute context (``inner``).
+    Re-enterable: R1's double backward recomputes a block twice."""
+
+    def __init__(self, inner=None):
+        self.inner = inner if inner is not None else contextlib.nullcontext()
+        self.open: List = []
+
+    def __enter__(self):
+        self.open.append(trace.span("remat.recompute"))
+        self.open[-1].__enter__()
+        self.inner.__enter__()
+
+    def __exit__(self, *exc):
+        self.inner.__exit__(*exc)
+        self.open.pop().__exit__(*exc)
 
 
 class _Replay(TorchDispatchMode):
@@ -106,7 +128,8 @@ def checkpoint_block(fn: Callable[..., torch.Tensor], *args, save_convs: bool = 
     if not torch.is_grad_enabled():
         return fn(*args)
     if not save_convs:
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(), _Recompute()))
     saves = _Saves()
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
-                      context_fn=lambda: (_Region(saves, False), _Region(saves, True)))
+                      context_fn=lambda: (_Region(saves, False), _Recompute(_Region(saves, True))))

@@ -951,3 +951,52 @@ def test_iteration_on_card_matches_cpu(view_batched_steps, beta1, dev):
         assert all(abs(x - y) <= 1e-4 * max(1.0, abs(y)) for x, y in zip(a, b)), (a, b)
     for k, v in cpu.items():
         assert (card[k] - v).abs().max().item() <= 1e-3 * max(1e-3, v.abs().max().item()), k
+
+
+def test_phase_spans_on_card(dev):
+    """The program's tracing on the card: an even iteration under remat,
+    traced and not, from one state in deterministic mode, bitwise equal;
+    every span of the step carries its CUDA events, the step's phases in
+    order on the device, and each recompute (opened on autograd's device
+    thread) inside the device window of the G step's backward."""
+    import threading
+
+    from lcgan_torch.config import Config
+    from lcgan_torch.train.loop import deterministic_algorithms
+    from lcgan_torch.train.steps import Trainer
+    from lcgan_torch.utils import trace
+
+    kw = dict(model_name="unused", img_resolution=32, batch_size=4, geo_noise_dim=8, app_noise_dim=8,
+              geo_latent_dim=8, app_latent_dim=16, geo_projection_dim=8, app_projection_dim=8, base_nf=8, max_nf=16,
+              mbstd_group_size=2, compute_dtype="float32", remat_blocks=True, device="cuda")
+    g = torch.Generator().manual_seed(0)
+    batch = {k: (torch.rand((4, 3, 32, 32), generator=g) * 2 - 1).to(dev)
+             for k in ("image", "geometry_change", "appearance_change")}
+    with deterministic_algorithms():
+        trainer = Trainer(Config(**kw))
+        state = trainer.init_state()
+        start = state.state_dict()  # copies on the CPU
+        runs = []
+        for traced in (False, True):
+            state.load_state_dict(start)
+            trace.take()
+            if traced:
+                trace.enable()
+            state, g_loss, d_loss = trainer.train_iteration(state, batch, 0)
+            trace.disable()
+            spans, _ = trace.take()
+            torch.cuda.synchronize()
+            runs.append(((g_loss.item(), d_loss.item()), state.state_dict(), spans))
+    (off_losses, off_state, off_spans), (on_losses, on_state, spans) = runs
+    assert not off_spans and off_losses == on_losses
+    for net in ("generator", "discriminator", "ema"):
+        assert all(torch.equal(off_state[net][k], v) for k, v in on_state[net].items()), net
+    main = threading.get_ident()
+    top = [s for s in spans if s.parent is None and s.thread == main]
+    assert [s.name for s in top][:3] == ["noise", "g_step.forward", "g_step.backward"]
+    assert all(s.device_start_ns is not None and s.device_start_ns <= s.device_end_ns for s in spans)
+    assert all(a.device_end_ns <= b.device_start_ns for a, b in zip(top, top[1:]))
+    (backward,) = [s for s in spans if s.name == "g_step.backward"]
+    recompute = [s for s in spans if s.name == "remat.recompute" and
+                 backward.device_start_ns <= s.device_start_ns <= backward.device_end_ns]
+    assert recompute and all(s.thread != main and s.device_end_ns <= backward.device_end_ns for s in recompute)
