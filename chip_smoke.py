@@ -7,13 +7,15 @@
         # small-map kernel beside its general kernel, dyn_trip's two arms beside torch.mm),
         # and the 512² mix and even-step profile (even512)
     python3 chip_smoke.py --time-backward [ROOT]  # shorthand for --time-kernels warp_dgrid,warp_dx [ROOT]
+    python3 chip_smoke.py --time-pools [ROOT]  # steps 2 and 3 of the pool kernels of the lcgan_torch under ROOT
     python3 chip_smoke.py --cli-worker OUT.json -- CLI_ARGS  # step 8's rank under torchrun
 
 1. Builds every CUDA kernel of the port from lcgan_torch/ops/csrc with nvcc
    for sm_90a, one nvcc per source, in parallel: warp_fwd, warp_dgrid,
    warp_dx, warp_dx_scatter, the small-map route's warp_fwd_small,
-   warp_dgrid_small, warp_dx_small, and the probes' gather_probe and
-   dyn_trip_probe (two kernels: dyn_trip_static, dyn_trip_dyn).
+   warp_dgrid_small, warp_dx_small, the probes' gather_probe and
+   dyn_trip_probe (two kernels: dyn_trip_static, dyn_trip_dyn), and pool2d
+   (three kernels: box_filter, pool2x2, pool2x2_grad).
 2. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, in fp32 (max abs error <= 1e-5, scaled by the
    gradient's magnitude where it exceeds 1: the gradients sum up to C·16
@@ -36,7 +38,11 @@
    (B=8, C=512) and one tiny odd-C map (the scalar path), fp32 and bf16, at
    flows 0.1, 0.03 and 0.6, and warp_dx_small on a grid that gathers every
    pixel onto one spot. The gradient kernels, called twice on the same
-   inputs, must give bitwise-equal outputs.
+   inputs, must give bitwise-equal outputs. The pool kernels must equal
+   ATen's pools bitwise (avg_pool2d's forward, the 2x2 pool's backward) and
+   their plain versions, with ATen's strides, twice alike, at the timed maps
+   of step 3 and on odd maps, the narrow and the strided path, bf16 and
+   fp32.
 3. Times the four general kernels per shape with one function (the same as
    --time-kernels): warp_fwd at the six warp shapes of one 256² batch of 8
    and the narrow top blocks of the 512² and 1024² recipes (512²c64 B=8,
@@ -58,7 +64,12 @@
    the four in bf16), each in turns with its general kernel at the same
    call (warp_fwd, warp_dgrid, warp_dx), and the trip-count probe's two
    kernels at n = 1, 8, 16 and 64 beside torch.mm (its kernels line:
-   n = 16).
+   n = 16). Then the pool kernels in bf16 channels_last at the 512²
+   recipe's top block (512²·C64, batch 8 and 32), the 256² recipe's
+   (256²·C128, batch 8) and the 512² flow at batch 32 (C = 2, the box
+   filter alone), in turns with ATen's pool (the yardstick, K, L, L, K),
+   beside the byte bound and the plain version; each within 2x its bound
+   on the three large maps (their kernels line sums them).
 4. Drives the generation path: `python -m lcgan_torch.cli --phase
    fake_image_generation` on a seeded flagship 256² generator (base_nf 128,
    max_nf 512, latents 64/512, bf16, batch 8), three batches. The kernel
@@ -88,7 +99,10 @@
    warp_dx_scatter 1·8 = 8 (the 512²·C=64 block). args.txt, log.txt (the
    JAX package's line), epoch.txt and model/state.pt must exist and the
    losses be finite; a second call must resume from epoch.txt + 1, and
-   fake_image_generation must read the checkpoint. Then: the 8-iteration
+   fake_image_generation must read the checkpoint. The pool kernels'
+   launches over epochs 0-3, and the program's counters pool.launches and
+   pool.vector_launches: every launch on the vector path but the flow's box
+   filters (narrow) and those on cotangents that arrive NCHW (strided). Then: the 8-iteration
    mix fed by the port's own pipeline (MIX_WINDOWS_512 windows, images/s and
    peak memory), an even step with and without deterministic algorithms
    (its profile, the warp kernels' device ms by name, is step 10b's remat
@@ -200,7 +214,8 @@
 12. Prints the whole run's wall time, each kernel's time and bound per
    launch (a row's sums over the calls it times) with launches x (time -
    bound), the kernels as one JSON line (launches from step 6, from step 7
-   for the small-map kernels and from step 11 for the probes'), the card's
+   for the small-map kernels and from step 11 for the probes'; the pools'
+   per launch over step 3's three large maps), the card's
    name and power limit, and last the ok line.
    Exits nonzero, printing no result, on any failure and when no GPU is
    present.
@@ -355,7 +370,7 @@ def build_kernels(names=None) -> None:
     from lcgan_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build(list(KERNELS) + sorted(set(PROBE_SOURCE.values())) if names is None else names)
+    reports = _build.build(list(KERNELS) + sorted(set(PROBE_SOURCE.values())) + ["pool2d"] if names is None else names)
     print(f"build: {sorted(reports) or 'already built'} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, report in reports.items():
         entry = "?"
@@ -1168,6 +1183,133 @@ def line_totals(rows) -> dict:
     return totals
 
 
+# the pool kernels (csrc/pool2d.cu) in place of ATen's avg_pool2d, and the
+# (B, C, H) of their timed maps, bf16 channels_last: the 512² recipe's top
+# block at batch 8 and 32, the 256² recipe's top block, and the 512² flow at
+# batch 32 (the narrow path; the box filter alone runs on the flow)
+POOL_KERNELS = ("box_filter", "pool2x2", "pool2x2_grad")
+POOL_SHAPES = [(8, 64, 512), (32, 64, 512), (8, 128, 256), (32, 2, 512)]
+POOL_LARGE = POOL_SHAPES[:3]  # the three large main-path maps: each kernel within 2x its bound there
+# (B, C, H, W, channels_last) of the pools' checks beyond POOL_SHAPES: odd maps, the narrow and strided paths
+POOL_CHECK_SHAPES = [(8, 512, 4, 4, True), (8, 3, 7, 5, True), (4, 130, 33, 17, True), (8, 64, 64, 64, False),
+                     (1, 2, 2, 3, False)]
+
+
+def pool_work(name, b, c, h, es):
+    """Bytes of a pool kernel on a (b, c, h, h) map: its input read once,
+    its output written once."""
+    n = b * c * h * h * es
+    return 2 * n if name == "box_filter" else n + n // 4
+
+
+def pool_calls(b, c, h, w, channels_last=True, dtype=None, seed=0):
+    """The pool kernels, their plain versions and ATen's pools on one seeded
+    map and cotangent: {name: (kernel, plain, library)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from lcgan_torch.ops import filters
+
+    dtype = dtype or torch.bfloat16
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn((b, c, h, w), generator=gen, device="cuda").to(dtype).contiguous(memory_format=fmt)
+    g = torch.randn((b, c, h // 2, w // 2), generator=gen, device="cuda").to(dtype).contiguous(memory_format=fmt)
+    aten = lambda: F.avg_pool2d(x, 3, stride=1, padding=1)  # noqa: E731
+    aten2 = lambda: F.avg_pool2d(x, 2, stride=2)  # noqa: E731
+    return dict(
+        box_filter=(lambda: filters.box_filter(x), lambda: filters.box_filter_plain(x), aten),
+        pool2x2=(lambda: filters.pool2x2(x), lambda: filters.pool2x2_plain(x), aten2),
+        pool2x2_grad=(lambda: filters.pool2x2_grad(g, h, w, fmt), lambda: filters.pool2x2_grad_plain(g, h, w),
+                      lambda: torch.ops.aten.avg_pool2d_backward(g, x, [2, 2], [2, 2], [0, 0], False, True, None)),
+    )
+
+
+def check_pool_kernels() -> dict:
+    """Each pool kernel bitwise against ATen's pool (forward, and the 2x2
+    pool's backward) and against its plain version, at POOL_SHAPES and
+    POOL_CHECK_SHAPES, and twice on the same input; returns each kernel's
+    largest error against the plain version (0 where bitwise)."""
+    import torch
+
+    worst = dict.fromkeys(POOL_KERNELS, 0.0)
+    for b, c, h, w, cl in [(b, c, h, h, True) for b, c, h in POOL_SHAPES] + POOL_CHECK_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            calls = pool_calls(b, c, h, w, cl, dtype)
+            for name in POOL_KERNELS if min(h, w) >= 2 else ("box_filter",):
+                kernel, plain, library = calls[name]
+                out, out2, ref, lib = kernel(), kernel(), plain(), library()
+                same = torch.equal(out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                                   lib.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+                err = (out.float() - ref.float()).abs().max().item()
+                worst[name] = max(worst[name], err)
+                check(same and err == 0 and torch.equal(out, out2) and out.stride() == lib.stride(),
+                      f"{name} {b}x{c}x{h}x{w} {str(dtype)[6:]} {'channels_last' if cl else 'NCHW'}: bitwise equal "
+                      f"to ATen's {same}, to the plain version {err == 0}, two calls {torch.equal(out, out2)}, "
+                      f"ATen's strides {out.stride() == lib.stride()}")
+            del calls
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_pool_rows(bw: float) -> dict:
+    """Each pool kernel's device ms at POOL_SHAPES (bf16 channels_last) in
+    turns with ATen's pool (K, L, L, K; ATen's avg_pool2d and its backward,
+    the library yardstick) beside the byte bound, the plain version and the
+    wrapper's host time per call; returns the kernels-line figures: the
+    kernel's rows summed over POOL_LARGE."""
+    rows = []
+    for b, c, h in POOL_SHAPES:
+        calls = pool_calls(b, c, h, h)
+        for name in POOL_KERNELS if c > 2 else ("box_filter",):
+            kernel, plain, library = calls[name]
+            nbytes = pool_work(name, b, c, h, 2)
+            k1, l1, l2, k2 = cuda_ms(kernel), cuda_ms(library), cuda_ms(library), cuda_ms(kernel)
+            row = dict(kernel=name, b=b, c=c, h=h, ms=min(k1, k2), library_ms=min(l1, l2),
+                       plain_ms=cuda_ms(plain, 5), bound_ms=nbytes / bw * 1e3, host_us=host_us(kernel),
+                       library_host_us=host_us(library))
+            rows.append(row)
+            print(f"time {name} {b}x{c}x{h}x{h} bf16 channels_last: kernel {row['ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, bytes), {row['ms'] / row['bound_ms']:.2f}x the "
+                  f"bound ({row['bound_ms'] / row['ms']:.1%}), ATen {row['library_ms']:.4f} ms "
+                  f"({row['library_ms'] / row['ms']:.1f}x the kernel), plain {row['plain_ms']:.4f} ms, wrapper host "
+                  f"cost {row['host_us']:.1f} us per call (ATen's {row['library_host_us']:.1f})", flush=True)
+            if (b, c, h) in POOL_LARGE:
+                check(row["ms"] <= 2 * row["bound_ms"], f"{name} {b}x{c}x{h}x{h} within 2x its byte bound: "
+                      f"{row['ms'] / row['bound_ms']:.2f}x")
+        del calls
+    totals = {}
+    for name in POOL_KERNELS:
+        picked = [r for r in rows if r["kernel"] == name and (r["b"], r["c"], r["h"]) in POOL_LARGE]
+        totals[name] = {k: sum(r[k] for r in picked) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        totals[name]["bound_by"] = "bytes"
+        print(f"time {name} summed over {len(picked)} map(s) (bf16): kernel {totals[name]['ms']:.4f} ms, plain "
+              f"{totals[name]['plain_ms']:.4f} ms, ATen {totals[name]['library_ms']:.4f} ms, bound "
+              f"{totals[name]['bound_ms']:.4f} ms", flush=True)
+    return totals
+
+
+def time_pools(root: str) -> int:
+    """``python3 chip_smoke.py --time-pools [ROOT]``: build the pool kernels
+    of the lcgan_torch under ROOT, check them against ATen's pools and time
+    them (``check_pool_kernels``, ``time_pool_rows``)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import lcgan_torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    name = torch.cuda.get_device_name(0)
+    print(f"time-pools of {os.path.dirname(lcgan_torch.__file__)}: torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {name}", flush=True)
+    build_kernels(["pool2d"])
+    check_pool_kernels()
+    time_pool_rows(card_rates(name)[0])
+    return 1 if failures else 0
+
+
 def time_even_512() -> dict:
     """The 512² recipe (bf16, batch 8, freezeD_layer 4) on one synthetic batch
     in deterministic mode: after 8 warm iterations, 3 windows of the
@@ -1372,8 +1514,9 @@ def run_train_phase(data: str, run: str) -> dict:
             "--save_interval", "3", "--print_interval", "1", "--show_interval", "1000"]
     reset_launches()
     t0 = time.perf_counter()
-    out = run_cli(base + ["--epoch", "3"])
-    torch.cuda.synchronize()
+    with counting_pools() as pools:
+        out = run_cli(base + ["--epoch", "3"])
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
     print(f"train phase: epochs 0-3 through the CLI in {seconds:.3f} s (build, first calls, data and one save included)",
@@ -1382,6 +1525,15 @@ def run_train_phase(data: str, run: str) -> dict:
     expect.update(dict.fromkeys(SMALL_KERNELS, 0))  # the default warp_pallas_min_res, 128
     for name, n in launches.items():
         check(n == expect[name], f"{name} launches on the 512² train phase, epochs 0-3: {n} (expect {expect[name]})")
+    total, vector = pools["pool.launches"], pools["pool.vector_launches"]
+    print(f"pool launches on the 512² train phase, epochs 0-3: " + ", ".join(f"{k} {pools[k]}" for k in POOL_KERNELS)
+          + f"; the vector path {vector} of {total} ({vector / max(total, 1):.1%}); narrow: the flow's box filters "
+          f"{pools['flow']}, others {pools['narrow']}; strided (NCHW cotangents) {pools['strided']}", flush=True)
+    check(total == sum(pools[k] for k in POOL_KERNELS) > 0 and pools["narrow"] == 0
+          and vector == total - pools["flow"] - pools["strided"],
+          f"pool launches on the vector path, 512² train phase: {vector} (expect every launch but the flow's and "
+          f"the NCHW maps', {total} - {pools['flow']} - {pools['strided']})")
+    launches.update({k: pools[k] for k in POOL_KERNELS})
     lines = log_epochs(run)
     files = {f: os.path.exists(os.path.join(run, f)) for f in ("args.txt", "log.txt", "epoch.txt", "model/state.pt")}
     check(all(files.values()) and "restart training from" not in out, f"train phase files {files}")
@@ -1405,6 +1557,40 @@ def run_train_phase(data: str, run: str) -> dict:
     shape = np.asarray(Image.open(path)).shape if os.path.exists(path) else None
     check(shape == (512 * 8, 512, 3), f"fake_image_generation from the train phase's checkpoint: {shape}")
     return launches
+
+
+@contextlib.contextmanager
+def counting_pools():
+    """Counts the pool kernels' launches inside the block: each kernel's
+    own count, the program's tracing counters ``pool.launches`` and
+    ``pool.vector_launches`` (tracing on), and by the path each launch's
+    plan takes: "flow" (the generator's 2-channel flow, the narrow path),
+    "strided" (an NCHW map: cotangents that arrive so) and "narrow" (any
+    other narrow launch). Yields the dict, filled when the block ends."""
+    from lcgan_torch.ops import filters
+    from lcgan_torch.utils import trace
+
+    counts = dict.fromkeys(("flow", "strided", "narrow"), 0)
+    before = {k: getattr(filters, k).launches for k in POOL_KERNELS}
+    launch = filters._run
+
+    def counted(name, t, out_hw, fmt=None):
+        path = filters._plan(name, t.shape, t.stride(), t.dtype, out_hw, fmt).path
+        key = "strided" if path == "strided" else "flow" if t.shape[1] == 2 else "narrow" if path == "narrow" else None
+        if key:
+            counts[key] += 1
+        return launch(name, t, out_hw, fmt)
+
+    trace.enable()
+    filters._run = counted  # the wrappers look it up at each call
+    try:
+        yield counts
+    finally:
+        filters._run = launch
+        trace.disable()
+        _, counters = trace.take()
+        counts.update({k: getattr(filters, k).launches - before[k] for k in POOL_KERNELS})
+        counts.update({k: counters.get(k, 0) for k in ("pool.launches", "pool.vector_launches")})
 
 
 def run_train_512(data: str, run: str) -> None:
@@ -2943,9 +3129,10 @@ def main() -> int:
 
     build_kernels()
     worst = dict(warp_fwd=check_warp_kernel(), **check_backward_kernels(), warp_dx_scatter=check_dx_scatter(),
-                 **check_small_kernels())
+                 **check_small_kernels(), **check_pool_kernels())
     stamp("steps 1-2 (build, kernels against their plain versions)")
     times = line_totals(time_kernel_rows(TIMED_KERNELS, bw, flops, flows=FLOWS[:1], yardsticks=True))
+    times.update(time_pool_rows(bw))
     stamp("step 3 (kernel times)")
     run_generation_path()
     stamp("step 4 (generation)")
@@ -3007,7 +3194,8 @@ def main() -> int:
     # kernels by launches x (time - bound)
     summed = dict.fromkeys(("warp_fwd", "warp_dgrid", "warp_dx"), len(MAIN_PATH_WARPS))
     summed.update(dict.fromkeys(SMALL_KERNELS, len(SMALL_PATH_WARPS)))
-    for kernel in KERNELS + PROBE_KERNELS:
+    summed.update(dict.fromkeys(POOL_KERNELS, len(POOL_LARGE)))
+    for kernel in KERNELS + PROBE_KERNELS + POOL_KERNELS:
         ms, bound = (times[kernel][k] / summed.get(kernel, 1) for k in ("ms", "bound_ms"))
         print(f"per launch {kernel}: {ms:.4f} ms, bound {bound:.4f} ms, {launches[kernel]} launches, "
               f"launches x (ms - bound) = {launches[kernel] * (ms - bound):.3f} ms", flush=True)
@@ -3018,8 +3206,9 @@ def main() -> int:
     replaces = dict(warp_fwd="lcgan_tpu/ops/warp_pallas.py:442", warp_dgrid="lcgan_tpu/ops/warp_pallas.py:835",
                     warp_dx="lcgan_tpu/ops/warp_pallas.py:901", warp_dx_scatter="lcgan_tpu/ops/warp_pallas.py:988",
                     warp_fwd_small="lcgan_tpu/ops/warp_pallas.py:589", warp_dgrid_small="lcgan_tpu/ops/warp_pallas.py:629",
-                    warp_dx_small="lcgan_tpu/ops/warp_pallas.py:679", **PROBE_REPLACES)
-    source = {**{name: name for name in KERNELS}, **PROBE_SOURCE}
+                    warp_dx_small="lcgan_tpu/ops/warp_pallas.py:679", **PROBE_REPLACES,
+                    **dict.fromkeys(POOL_KERNELS, "none: ATen's NHWC avg_pool2d (XLA's pool in the JAX package)"))
+    source = {**{name: name for name in KERNELS}, **PROBE_SOURCE, **dict.fromkeys(POOL_KERNELS, "pool2d")}
     kernels = [dict(
         name=name,
         route="cuda",
@@ -3032,7 +3221,7 @@ def main() -> int:
         bound_ms=times[name]["bound_ms"],
         bound_by=times[name]["bound_by"],
         library_ms=times[name]["library_ms"],
-    ) for name in KERNELS + PROBE_KERNELS]
+    ) for name in KERNELS + PROBE_KERNELS + POOL_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -3047,6 +3236,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-kernels"] and len(sys.argv) > 2:
         sys.exit(time_kernels(sys.argv[2].split(","),
                               sys.argv[3] if len(sys.argv) > 3 else os.path.dirname(os.path.abspath(__file__))))
+    if sys.argv[1:2] == ["--time-pools"]:
+        sys.exit(time_pools(sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(os.path.abspath(__file__))))
     if sys.argv[1:2] == ["--time-backward"]:  # shorthand for --time-kernels warp_dgrid,warp_dx
         sys.exit(time_kernels(["warp_dgrid", "warp_dx"],
                               sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(os.path.abspath(__file__))))

@@ -1,6 +1,7 @@
 """The CUDA warp kernels on the card (forward, grid gradient, the two
 feature-gradient kernels, and the three small-map kernels), against their
-plain versions, the deterministic-mode train iteration, the probes'
+plain versions, the pool kernels (box filter, 2x2 pool and its gradient)
+against ATen's pools, the deterministic-mode train iteration, the probes'
 kernels (the gather and the static and loaded trip-count sums), the
 collectives under a one-rank NCCL group, and the FID network on the card
 against the CPU.
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from lcgan_torch.models.generator import Generator
-from lcgan_torch.ops import warp
+from lcgan_torch.ops import filters, warp
 from lcgan_torch.ops.grid_sample import (
     grid_sample_bicubic_plain,
     grid_sample_bicubic_plain_backward,
@@ -300,9 +301,10 @@ def test_autograd_function_on_card_matches_cpu(s, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_box_filter_gradient_on_card_matches_cpu(dtype, dev):
-    """PyTorch's own CUDA avg_pool2d backward on channels_last features gave
-    wrong gradients; the port's box filter routes its gradient through the
-    forward pool, which agrees with the CPU."""
+    """The box filter's gradient on the card (the filter's kernel run on the
+    cotangent) against the CPU's. PyTorch's own CUDA avg_pool2d backward on
+    channels_last features once gave wrong gradients here; no pool of the
+    port reaches it now."""
     from lcgan_torch.ops.filters import box_filter_3x3
 
     g = torch.Generator().manual_seed(0)
@@ -315,6 +317,157 @@ def test_box_filter_gradient_on_card_matches_cpu(dtype, dev):
         grads.append(dx.float().cpu())
     tol = 1e-6 if dtype == torch.float32 else 2.0 ** -6  # bf16: one rounding of values below 4
     torch.testing.assert_close(grads[0], grads[1], atol=tol, rtol=0)
+
+
+POOL_CHANNELS = [2, 3, 8, 64, 130]  # the flow, odd, one vector, the main path's, 260 / 520 bytes a pixel
+POOL_MAPS = [(1, 1), (2, 3), (7, 5), (64, 64), (256, 256)]
+
+
+def pool_input(b, c, h, w, dtype, channels_last, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, c, h, w), generator=g, device=dev).to(dtype)
+    return x.contiguous(memory_format=torch.channels_last if channels_last else torch.contiguous_format)
+
+
+def bits(t):
+    """The tensor's bit patterns (tells -0 from +0)."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("hw", POOL_MAPS)
+@pytest.mark.parametrize("c", POOL_CHANNELS)
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_kernels_match_aten(dtype, channels_last, c, hw, b, dev):
+    """The box filter and the 2x2 pool bitwise equal to ATen's forward on
+    the card (both sum in ATen's order), the 2x2 gradient to ATen's backward
+    and to the plain version, each output in ATen's memory format; on a map
+    with no 2x2 window the pool raises, as ATen's does."""
+    h, w = hw
+    x = pool_input(b, c, h, w, dtype, channels_last, dev)
+    out, ref = filters.box_filter(x), F.avg_pool2d(x, 3, stride=1, padding=1)
+    assert torch.equal(bits(out), bits(ref)) and out.stride() == ref.stride()
+    if min(h, w) < 2:
+        with pytest.raises(ValueError):
+            filters.pool2x2(x)
+        return
+    out, ref = filters.pool2x2(x), F.avg_pool2d(x, 2, stride=2)
+    assert torch.equal(bits(out), bits(ref)) and out.stride() == ref.stride()
+    g = torch.randn(ref.shape, generator=torch.Generator(device=dev).manual_seed(1), device=dev).to(dtype)
+    g = g.contiguous(memory_format=torch.channels_last if channels_last else torch.contiguous_format)
+    out = filters.pool2x2_grad(g, h, w, filters._format(x.shape, x.stride()))
+    ref = torch.ops.aten.avg_pool2d_backward(g, x, [2, 2], [2, 2], [0, 0], False, True, None)
+    assert torch.equal(bits(out), bits(ref)) and out.stride() == ref.stride()
+    assert torch.equal(out, filters.pool2x2_grad_plain(g, h, w))
+
+
+# (b, c, h, w, channels_last) of the determinism and count checks: the three paths
+POOL_PATH_SHAPES = [(8, 64, 256, 256, True), (8, 2, 256, 256, True), (2, 64, 64, 64, False)]
+
+
+@pytest.mark.parametrize("shape", POOL_PATH_SHAPES)
+def test_pool_kernels_are_deterministic_and_counted(shape, dev):
+    """Two calls give the same bits; each call moves its kernel's launch
+    count by one, and the tracing counters count every launch and the
+    vector path's."""
+    from lcgan_torch.utils import trace
+
+    b, c, h, w, channels_last = shape
+    x = pool_input(b, c, h, w, torch.bfloat16, channels_last, dev)
+    g = pool_input(b, c, h // 2, w // 2, torch.bfloat16, channels_last, dev, seed=1)
+    calls = dict(box_filter=lambda: filters.box_filter(x), pool2x2=lambda: filters.pool2x2(x),
+                 pool2x2_grad=lambda: filters.pool2x2_grad(g, h, w))
+    trace.take()
+    trace.enable()
+    for name, call in calls.items():
+        before = getattr(filters, name).launches
+        first, second = call(), call()
+        assert getattr(filters, name).launches == before + 2
+        assert torch.equal(bits(first), bits(second))
+    trace.disable()
+    _, counters = trace.take()
+    vector = channels_last and c * 2 % 16 == 0
+    assert counters.get("pool.launches") == 6 and counters.get("pool.vector_launches", 0) == (6 if vector else 0)
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_double_gradients_on_card_match_cpu(dtype, channels_last, dev):
+    """Both pools' first and second derivatives on the card (their backward
+    Functions differentiated again, as R1 does through D) against the
+    CPU's, ATen's pools there."""
+    from lcgan_torch.ops.filters import avg_pool_2x2, box_filter_3x3
+
+    gen = torch.Generator().manual_seed(0)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = torch.randn((2, 64, 16, 12), generator=gen).to(dtype).contiguous(memory_format=fmt)
+    c3 = torch.randn((2, 64, 16, 12), generator=gen).to(dtype)
+    c2 = torch.randn((2, 64, 8, 6), generator=gen).to(dtype)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        xd = x.to(device).requires_grad_()
+        cots = [c3.to(device).requires_grad_(), c2.to(device).requires_grad_()]
+        loss = (box_filter_3x3(xd) * cots[0]).sum() + (avg_pool_2x2(xd) * cots[1]).sum()
+        (dx,) = torch.autograd.grad(loss, xd, create_graph=True)
+        dd = torch.autograd.grad((dx.float() ** 2).sum(), cots)
+        results.append([t.float().cpu() for t in (dx, *dd)])
+    for card, cpu in zip(*results):
+        scale = cpu.abs().max().item()
+        tol = 1e-6 * scale if dtype == torch.float32 else 2.0 ** -7 * scale  # bf16: a rounding or two
+        torch.testing.assert_close(card, cpu, atol=tol, rtol=0)
+
+
+def test_pools_under_checkpoint_block(dev):
+    """Under the remat switch's checkpoint (non-reentrant, recomputing the
+    block in the backward) the gradients equal the plain run's bitwise, and
+    the recompute launches the forward kernels again."""
+    from lcgan_torch.ops.filters import avg_pool_2x2, box_filter_3x3
+    from lcgan_torch.utils.remat import checkpoint_block
+
+    def block(t):  # sin saves its input, so the recompute runs both pools again
+        y = torch.tanh(t)
+        return torch.sin(box_filter_3x3(y)) + F.interpolate(torch.sin(avg_pool_2x2(y)), scale_factor=2.0)
+
+    x = pool_input(4, 64, 32, 32, torch.bfloat16, True, dev)
+    cot = pool_input(4, 64, 32, 32, torch.bfloat16, True, dev, seed=1)
+    grads, launches = [], []
+    for remat in (False, True):
+        xd = x.clone().requires_grad_()
+        before = filters.box_filter.launches, filters.pool2x2.launches, filters.pool2x2_grad.launches
+        out = checkpoint_block(block, xd) if remat else block(xd)
+        (dx,) = torch.autograd.grad(out, xd, cot)
+        grads.append(dx)
+        after = filters.box_filter.launches, filters.pool2x2.launches, filters.pool2x2_grad.launches
+        launches.append(tuple(a - b for a, b in zip(after, before)))
+    assert torch.equal(bits(grads[0]), bits(grads[1]))
+    assert launches == [(2, 1, 1), (3, 2, 1)]
+
+
+def test_no_pool_reaches_aten_on_card(dev, monkeypatch):
+    """The generator's and the discriminator's forward, backward and R1's
+    double backward on the card with ATen's avg_pool2d unavailable: every
+    pool goes through the kernels."""
+    from lcgan_torch.models.discriminator import Discriminator
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("F.avg_pool2d called on the card")
+
+    d = Discriminator(img_resolution=32, base_nf=8, max_nf=16, mbstd_group_size=2,
+                      generator=torch.Generator().manual_seed(0))
+    d = d.to(dev, memory_format=torch.channels_last)
+    g = Generator(img_resolution=32, geo_noise_dim=8, app_noise_dim=8, geo_latent_dim=8, app_latent_dim=16,
+                  base_nf=8, max_nf=16, generator=torch.Generator().manual_seed(1))
+    g = g.to(dev, memory_format=torch.channels_last)
+    z = torch.randn((4, 8), generator=torch.Generator().manual_seed(2)).to(dev)
+    monkeypatch.setattr(F, "avg_pool2d", refuse)
+    before = filters.box_filter.launches, filters.pool2x2.launches, filters.pool2x2_grad.launches
+    fake = g(z, z)
+    real = fake.detach().requires_grad_()
+    (r1,) = torch.autograd.grad(d(real)[0].sum(), real, create_graph=True)
+    (d(fake)[0].sum() + r1.square().sum()).backward()
+    after = filters.box_filter.launches, filters.pool2x2.launches, filters.pool2x2_grad.launches
+    assert all(a > b for a, b in zip(after, before))
 
 
 def test_generator_on_card_matches_cpu(dev):
